@@ -6,9 +6,10 @@ frame tracked").  Measures jax.value_and_grad of the MSE pixel loss
 w.r.t. all SceneParams (texture colors, atlas, fuzz, IOR, sky) on the
 cover scene at 400x225 @ 1 spp, diff_max_depth bounces.
 
-Prints ONE JSON line: {"metric", "value", "unit", "vs_baseline"} where
-vs_baseline is the backward/forward wall-time ratio (the reference has no
-gradients, so there is no external number to compare against).
+Prints the device record, then ONE JSON line: {"metric", "value", "unit",
+"backward_over_forward", "device"} (the reference has no gradients, so
+there is no external number to compare against).  Fails when JAX finds no
+GPU.
 """
 
 import json
@@ -23,7 +24,11 @@ def main() -> None:
     from rt_tpu import grad as grad_mod
     from rt_tpu import scenes
     from rt_tpu.config import RenderConfig
-    from rt_tpu.render import render_chunk
+    from rt_tpu.runtime import enable_compile_cache, require_gpu
+
+    enable_compile_cache()
+    device = require_gpu()
+    print(json.dumps({"device": device}), flush=True)
 
     camera = scenes.cam1(400, 225)
     scene = scenes.cover_scene(11, 11, camera, z=-0.2, seed=0)
@@ -63,9 +68,10 @@ def main() -> None:
         json.dumps(
             {
                 "metric": "pixel_grad_backward_s_400x225_1spp",
-                "value": round(t_bwd, 4),
+                "value": t_bwd,
                 "unit": "s",
-                "vs_baseline": round(t_bwd / t_fwd, 3),  # backward/forward ratio
+                "backward_over_forward": t_bwd / t_fwd,
+                "device": device,
             }
         )
     )

@@ -1,16 +1,14 @@
 #!/usr/bin/env python
-"""Device-count scaling benchmark (BASELINE.md: report Mray/s at 1 chip,
-1 host, N hosts).
+"""Device-count scaling benchmark: sharded-render Mray/s at 1, 2, 4, ...
+devices of one host (or of a multi-host mesh with --multihost).
 
-On a pod slice, run one process per host:
     python bench_scaling.py                  # uses every visible device
-    python bench_scaling.py --devices 4      # subset (single-host study)
-    python bench_scaling.py --multihost      # jax.distributed.initialize
+    python bench_scaling.py --devices 2      # subset
 
-Prints one JSON line per device count with sharded-render Mray/s.  On this
-round's single-chip environment it degenerates to the 1-device row; the
-code path itself is exercised by tests/test_distributed.py on a simulated
-8-device mesh.
+Prints the device record, then one JSON line per device count with its
+Mray/s and the ratio to the 1-device row.  Fails when JAX finds no GPU;
+the code path itself is exercised by tests/test_distributed.py on a
+simulated 8-device CPU mesh.
 """
 
 import argparse
@@ -36,6 +34,11 @@ def main() -> None:
     from rt_tpu import scenes
     from rt_tpu.config import RenderConfig
     from rt_tpu.parallel import make_mesh, render_sharded
+    from rt_tpu.runtime import enable_compile_cache, require_gpu
+
+    enable_compile_cache()
+    device = require_gpu()
+    print(json.dumps({"device": device}), flush=True)
 
     width, height = (int(v) for v in args.size.split("x"))
     camera = scenes.cam1(width, height)
@@ -49,6 +52,7 @@ def main() -> None:
         counts.append(c)
         c *= 2
 
+    base = None
     for n in counts:
         mesh = make_mesh(n, tiles=n)
         img = render_sharded(scene, camera, cfg, mesh, spp=args.spp)
@@ -60,13 +64,14 @@ def main() -> None:
             jax.block_until_ready(img)
             best = min(best, time.perf_counter() - t0)
         mray = args.spp * width * height / 1e6 / best
+        base = base or mray
         print(
             json.dumps(
                 {
                     "devices": n,
-                    "mray_per_s": round(mray, 3),
-                    "wall_s": round(best, 4),
-                    "scaling_vs_1dev": None if n == 1 else round(mray, 3),
+                    "mray_per_s": mray,
+                    "wall_s": best,
+                    "scaling_vs_1dev": mray / base,
                 }
             ),
             flush=True,

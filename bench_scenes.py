@@ -1,19 +1,19 @@
 #!/usr/bin/env python
-"""BASELINE configs 2-5 as named, timed workloads (one real TPU chip).
+"""BASELINE configs 2-5 as named, timed workloads on one GPU.
 
-Config 1 (RTIOW cover) is bench.py — the driver's headline metric.  This
-script times the remaining BASELINE.json configs end-to-end and prints one
+Config 1 (RTIOW cover) is bench.py.  This script times the remaining
+BASELINE.json configs end-to-end and prints the device record, then one
 JSON line per config:
 
   2. cover textures + frosted glass, depth-8 (the bench cover scene IS
      config 2's shape — included here at depth 8 for the record)
-  3. skull-class OBJ mesh (~100k tris, BVH/clustered path) + emissive
-     area light, 800x450 @ 64 spp
+  3. skull-class OBJ mesh (~100k tris, BVH path) + emissive area light,
+     800x450 @ 64 spp
   4. armor-class glTF (metallic-roughness + baseColorTexture atlas)
      + Hosek-Wilkie sky, 800x450 @ 64 spp
   5. night-car-class multi-mesh glTF + low-sun H-W sky,
-     1920x1080 @ 256 spp progressive tiled render with checkpoint/resume
-     (pass --quick to cap config 5 at 16 spp for smoke runs)
+     1920x1080 @ 256 spp progressive render with checkpoint/resume
+     (pass --quick to cap config 5 at 8 spp for smoke runs)
 
 Reference anchors: scenes.rs:344-458 (mesh/gltf/sponza scenes),
 window.rs:233-247 (progressive schedule), window.rs:315-324 (Mray/s).
@@ -23,10 +23,13 @@ skull/armor/car assets are hardcoded user paths that don't ship.
 
 import argparse
 import json
+import os
 import sys
 import time
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+
+DEVICE = {}
 
 
 def mray(rays, seconds):
@@ -36,9 +39,10 @@ def mray(rays, seconds):
 def emit(name, rays, seconds, extra=None):
     rec = {
         "metric": f"mray_per_s_{name}",
-        "value": round(mray(rays, seconds), 3),
+        "value": mray(rays, seconds),
         "unit": "Mray/s",
-        "wall_s": round(seconds, 3),
+        "wall_s": seconds,
+        "device": DEVICE,
     }
     if extra:
         rec.update(extra)
@@ -46,9 +50,8 @@ def emit(name, rays, seconds, extra=None):
 
 
 def time_frame(scene, camera, cfg, spp, trials=2):
-    """Deep-frame wall time via the standard watchdog-safe render API
-    (render_image chunks long clustered dispatches); reference Mray/s
-    counter semantics (window.rs:315-324), warm-measured."""
+    """Deep-frame wall time via the standard render API (render_image);
+    reference Mray/s counter semantics (window.rs:315-324), warm-measured."""
     from rt_tpu.render import render_image
 
     cfg = cfg.replace(samples_per_pixel=spp)
@@ -74,21 +77,6 @@ def config2():
     emit("config2_cover_textures_d8_400x225_640spp", rays, dt)
 
 
-def _mesh_cam(w, h, dist=5.5, height=2.2):
-    from rt_tpu.camera import make_camera
-
-    return make_camera(
-        (dist, -dist, height),
-        (0.0, 0.0, 1.0),
-        (0.0, 0.0, 1.0),
-        focus_distance=float((2 * dist * dist + (height - 1) ** 2) ** 0.5),
-        defocus_angle=0.0,
-        image_width=w,
-        image_height=h,
-        vertical_fov=32.0,
-    )
-
-
 def config3(fixtures, depthcheck=False):
     import numpy as np
 
@@ -101,7 +89,7 @@ def config3(fixtures, depthcheck=False):
     # skull.obj), and a closed blob is the faithful stand-in.  The open
     # height-field terrain is kept as a SECONDARY row for the easier
     # locality class it represents.
-    camera = _mesh_cam(800, 450)
+    camera = scenes.mesh_cam(800, 450)
     cfg = RenderConfig(width=800, height=450, samples_per_pixel=64, max_depth=16)
     scene = scenes.mesh_with_area_light(fixtures["obj"])
     rays, dt = time_frame(scene, camera, cfg, spp=64)
@@ -120,9 +108,9 @@ def config3(fixtures, depthcheck=False):
         delta = float(np.abs(a16 - a50).mean())
         extra.update(
             {
-                "depth16_vs_depth50_mad": round(delta, 6),
-                "seed_noise_mad_32spp": round(noise, 6),
-                "depth_delta_over_noise": round(delta / max(noise, 1e-12), 3),
+                "depth16_vs_depth50_mad": delta,
+                "seed_noise_mad_32spp": noise,
+                "depth_delta_over_noise": delta / max(noise, 1e-12),
             }
         )
     emit(
@@ -156,7 +144,7 @@ def config4(fixtures):
     scene = b.build().replace(
         sky=sky_mod.SkyParams.hosek(turbidity=3.0, albedo=0.3, elevation=0.8)
     )
-    camera = _mesh_cam(800, 450)
+    camera = scenes.mesh_cam(800, 450)
     cfg = RenderConfig(width=800, height=450, samples_per_pixel=64, max_depth=16)
     rays, dt = time_frame(scene, camera, cfg, spp=64)
     emit(
@@ -168,6 +156,8 @@ def config4(fixtures):
 
 
 def config5(fixtures, quick=False, spp5=0):
+    import tempfile
+
     import numpy as np
 
     from rt_tpu import scenes
@@ -189,32 +179,21 @@ def config5(fixtures, quick=False, spp5=0):
         )
     )
     w, h = 1920, 1080
-    camera = _mesh_cam(w, h, dist=7.0, height=2.6)
+    camera = scenes.mesh_cam(w, h, dist=7.0, height_z=2.6)
     cfg = RenderConfig(width=w, height=h, samples_per_pixel=1, max_depth=12)
     spp_target = spp5 or (8 if quick else 256)
-    # 4-spp sweeps (~8.3M rays each): the round-5 expansion sweep made
-    # this class fast enough that a 4-spp 1080p dispatch stays well
-    # inside the ~30 s device watchdog, and the fatter sweeps amortize
-    # the pool's fresh-claim drain tail that dominated 1-spp sweeps
-    # (ROADMAP: ~4x iteration inflation at spp <= 2).
-    spw = 4 if spp_target % 4 == 0 else 1
+    spw = 4 if spp_target % 4 == 0 else 1  # 4-spp sweeps: ~8.3M rays each
     passes = ProgressiveSchedule(
         ramp=(spw,) * (spp_target // spw),
         sustain_64=0, sustain_128=0, sustain_256=0,
     )
-    import tempfile, os
-
     ckpt = os.path.join(tempfile.gettempdir(), "bench_config5.ckpt.npz")
     if os.path.exists(ckpt):
         os.remove(ckpt)
-    # Sweeps run through the production megakernel (the wavefront
-    # engine's per-sweep dispatch + per-sweep 25 MB checkpoint writes
-    # made 1080p sweeps ~70 s wall at a ~21 s render cost).
     pr = ProgressiveRenderer(
         scene, camera, cfg,
         schedule=passes,
         checkpoint_path=ckpt,
-        engine="mega",
         checkpoint_every=16,
     )
     # warm-up compile on the first sweep shape (all sweeps share it)
@@ -235,7 +214,6 @@ def config5(fixtures, quick=False, spp5=0):
                 scene, camera, cfg,
                 schedule=passes,
                 checkpoint_path=ckpt,
-                engine="mega",
                 checkpoint_every=16,
             )
             assert 0 < pr2.state.total_spp <= done_spp, "resume mismatch"
@@ -270,9 +248,13 @@ def main():
     )
     args = ap.parse_args()
 
+    from rt_tpu.runtime import enable_compile_cache, require_gpu
     from tools.gen_fixtures import ensure_fixtures
 
-    fixtures = ensure_fixtures("/tmp/rt_fixtures")
+    enable_compile_cache()
+    DEVICE.update(require_gpu())
+    print(json.dumps({"device": DEVICE}), flush=True)
+    fixtures = ensure_fixtures()
     todo = [args.only] if args.only else [2, 3, 4, 5]
     if 2 in todo:
         config2()

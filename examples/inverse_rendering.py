@@ -6,7 +6,7 @@ gradient descent through the differentiable path tracer until the render
 matches — the end-to-end capability the reference (a forward-only CPU
 tracer) has no analog of.
 
-Runs on CPU in ~a minute:
+Runs on whatever device JAX finds (pass JAX_PLATFORMS=cpu for the CPU):
     python examples/inverse_rendering.py [--steps 60]
 """
 
@@ -16,10 +16,7 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import jax
-
-jax.config.update("jax_platforms", jax.config.jax_platforms or "cpu")
-
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 import optax  # noqa: E402

@@ -78,12 +78,6 @@ def main(argv=None) -> int:
                         help="limit progressive passes")
     parser.add_argument("--checkpoint", default=None,
                         help="progressive checkpoint .npz (resume if exists)")
-    parser.add_argument("--engine", default="wavefront",
-                        choices=["wavefront", "mega"],
-                        help="progressive sweep engine: 'mega' routes full-"
-                        "frame sweeps through the production megakernel "
-                        "(hash-RNG draw family; large/mesh scenes render "
-                        "many times faster per sweep)")
     parser.add_argument("--checkpoint-every", type=int, default=1,
                         help="sweeps between checkpoint writes")
     parser.add_argument("--metrics", default=None, help="JSONL metrics path")
@@ -97,10 +91,14 @@ def main(argv=None) -> int:
     parser.add_argument("--cpu", action="store_true", help="force CPU backend")
     args = parser.parse_args(argv)
 
-    if args.cpu:
-        import jax
+    import jax
 
+    if args.cpu:
         jax.config.update("jax_platforms", "cpu")
+
+    from rt_tpu.runtime import enable_compile_cache
+
+    enable_compile_cache()
 
     from rt_tpu import scenes
     from rt_tpu.config import RenderConfig
@@ -139,7 +137,6 @@ def main(argv=None) -> int:
             checkpoint_path=args.checkpoint,
             metrics_path=args.metrics,
             progress=True,  # indicatif-style sweep bar (profiling.ProgressBar)
-            engine=args.engine,
             checkpoint_every=args.checkpoint_every,
         )
         server = None

@@ -13,10 +13,10 @@ import dataclasses
 from typing import Tuple
 
 # f32 policy: the reference uses f64 everywhere (camera.rs:18) because f32
-# produced shadow-acne artifacts (TODO.md:38-40).  TPU is f32-native, so
-# rt_tpu renders in f32 and instead fixes robustness structurally: ray
-# origins are offset along the geometric normal after every bounce (see
-# integrator.py), and epsilons are scene-scale aware.
+# produced shadow-acne artifacts (TODO.md:38-40).  rt_tpu renders in f32
+# (the accelerator's native width) and instead fixes robustness
+# structurally: ray origins are offset along the geometric normal after
+# every bounce (see integrator.py), and epsilons are scene-scale aware.
 DEFAULT_T_MIN = 1.0e-3  # shadow-acne epsilon (reference: camera.rs:297, `0.001..`)
 DEFAULT_T_MAX = 3.0e38  # stand-in for Float::MAX (reference: camera.rs:22)
 
@@ -77,42 +77,11 @@ class RenderConfig:
     # Base RNG seed; all randomness is threefry-derived from this.
     seed: int = 0
     # Rays processed per device dispatch (pixels*spp are chunked to bound
-    # HBM residency of the wavefront state).
+    # the wavefront state's device memory).
     max_rays_per_batch: int = 1 << 20
     # Detach discrete sampling decisions in the backward pass (path-replay
     # style).  Keep True: unbiased detached-sampling estimator.
     detach_sampling: bool = True
-    # Sort wavefront pool lanes by (origin cell, direction octant) each
-    # iteration on the clustered path.  Improves tile coherence for the
-    # worklist kernel but the argsort + state permutation costs about as
-    # much as it saves on the scenes measured so far (ROADMAP) — off by
-    # default; images are identical either way.
-    sort_rays: bool = False
-    # Sort cadence: permute the pool on iterations where it % sort_every == 0
-    # (1 = every iteration).  Bounce directions decorrelate slowly, so a
-    # stale order keeps most of the coherence at a fraction of the sort cost.
-    sort_every: int = 4
-    # Clustered-megakernel lane binning: counting-sort the persistent
-    # pool by direction octant x origin cell each bounce so every lane
-    # row (the worklist SIMD granularity) holds coherent rays.  "auto"
-    # (= on for clustered scenes) / "on" / "off".  Bit-exact state
-    # permutation; images differ only by f32 deposit summation order.
-    bin_lanes: str = "auto"
-    # Clustered-megakernel expansion sweep (round 5): intersect via
-    # (8,128) flipped-vreg visits — 8 (ray, entered-cluster) work items
-    # on sublanes x one cluster's 128 slots on lanes — instead of the
-    # row-granular sweep, which pays ~1.3 beneficiary lanes per 128-lane
-    # visit on closed meshes (ROADMAP round-4 decomposition).  "auto"
-    # (= on for VMEM-resident scenes within the item/cluster capacity) /
-    # "on" / "off".  Bit-compatible candidate sets; see megakernel.py.
-    expand_sweep: str = "auto"
-    # Renderer selection: "wavefront" (persistent wavefront, two device
-    # programs per bounce), "megakernel" (whole bounce loop in one Pallas
-    # call — requires megakernel.eligible(scene) and a TPU backend), or
-    # "auto" (megakernel where eligible, wavefront otherwise).  Default
-    # auto: on v5e the megakernel measured ~3x the wavefront's device
-    # throughput on the bench scene (parity pinned by test_megakernel.py).
-    renderer: str = "auto"
     compat: CompatConfig = dataclasses.field(default_factory=CompatConfig)
 
     def replace(self, **kw) -> "RenderConfig":

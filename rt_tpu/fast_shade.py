@@ -1,22 +1,17 @@
 """Scalarized fast shading path for the persistent wavefront.
 
-Why this exists (measured on v5e, pool B = 131k):
-- an XLA gather of a [B]-indexed table row costs ~1 ms; the generic
-  bounce (hit_attributes + texture_value + scatter) performs ~20 of them;
-- reductions over the minor length-3 axis of [B,3] arrays (norms, dots)
-  cost ~0.6 ms each;
-- together those made one bounce ~27 ms while the intersection kernel
-  itself costs ~2 ms.
+The generic bounce (geometry.hit_attributes + textures.texture_value +
+materials.scatter) gathers ~20 per-primitive table rows per lane and
+reduces over the minor length-3 axis of [B,3] arrays.  This module packs
+the work differently:
 
-This module removes both costs:
 - ALL per-primitive shading parameters (geometry, material, texture) are
   packed into one dense f32[F, P] ``shade_table`` at scene-build time; the
   winning primitive's parameter bundle is fetched for every lane at once
-  with a single one-hot matmul on the MXU (``table @ onehot``), zero
-  gathers (the image-texture atlas fetch is the one exception, gated on a
-  static flag);
+  (``fetch_params``), in one operation (the image-texture atlas fetch is
+  the one exception, gated on a static flag);
 - every vector quantity lives as separate [B] component rows, so all math
-  is pure elementwise VPU work with no cross-lane reductions.
+  is elementwise with no cross-lane reductions.
 
 The physics is identical to materials.py/textures.py/geometry.py (the
 readable, differentiable reference implementations, each citing the Rust
@@ -41,7 +36,7 @@ from rt_tpu.scene import (
 
 BIG = 3.0e38
 
-# shade_table row indices (F rows, transposed [F, P] for the MXU fetch).
+# shade_table row indices (F rows of a transposed [F, P] table).
 F_IS_SPHERE = 0
 F_AX, F_AY, F_AZ = 1, 2, 3  # sphere center / triangle vertex a
 F_RADIUS = 4
@@ -207,10 +202,10 @@ def build_shade_table_diff(scene) -> jnp.ndarray | None:
 def fetch_params(table: jnp.ndarray, prim: jnp.ndarray) -> jnp.ndarray:
     """All shading params for each lane's winning primitive: f32[F, B].
 
-    Small tables: one-hot MXU matmul (onehot[P, B] = (iota == prim),
-    params = table @ onehot) — ~0.5 ms at B=131k, P=512, zero gathers.
-    Large tables: the [P, B] one-hot would dominate, so fall back to a
-    single row gather + transpose (~1-2 ms; still one op, not ~20).
+    Tables of up to 2048 columns: a one-hot product (onehot[P, B] =
+    (iota == prim), params = table @ onehot), pinned to full f32 so no
+    backend rounds the fetched values (TF32 would keep ~3 digits).
+    Larger tables: one row gather + transpose.
     """
     p_pad = table.shape[1]
     if p_pad <= 2048:
@@ -236,10 +231,10 @@ def shade_bounce(
 ) -> dict:
     """One scalarized bounce after intersection.
 
-    ``prim`` indexes ``table`` (defaults to scene.shade_table; the cluster
-    path passes its slot-ordered table and slot ids).  When the kernel
-    already fetched the winner's parameter columns (prim_nearest_shaded),
-    pass them as ``params`` f32[F, B] and the fetch here is skipped.
+    ``prim`` indexes ``table`` (defaults to scene.shade_table).  When the
+    intersection already fetched the winner's parameter columns
+    (pallas_ops.prim_nearest_shaded), pass them as ``params`` f32[F, B]
+    and the fetch here is skipped.
 
     Returns dict with: new_rays f32[8,B], attenuation rgb rows f32[3,B],
     sky rgb rows f32[3,B], hit bool[B], survive bool[B].
@@ -310,6 +305,11 @@ def shade_bounce(
     vvy = aoz * e1x - aox * e1z
     vvz = aox * e1y - aoy * e1x
     bv = (dx * vvx + dy * vvy + dz * vvz) * inv_det
+    # Triangle hit points from the barycentrics (see geometry.hit_attributes).
+    on_tri = hit & ~is_sphere
+    px = jnp.where(on_tri, f[F_AX] + bu * e1x + bv * e2x, px)
+    py = jnp.where(on_tri, f[F_AY] + bu * e1y + bv * e2y, py)
+    pz = jnp.where(on_tri, f[F_AZ] + bu * e1z + bv * e2z, pz)
     ua_u, ua_v = f[F_UVA + 0], f[F_UVA + 1]
     ub_u, ub_v = f[F_UVA + 2], f[F_UVA + 3]
     uc_u, uc_v = f[F_UVA + 4], f[F_UVA + 5]
@@ -460,13 +460,14 @@ def shade_bounce(
 def sphere_nearest_rows(
     scene: SceneData, rays: jnp.ndarray, t_min: float, t_max: float
 ) -> tuple[jnp.ndarray, jnp.ndarray]:
-    """XLA fallback for the fast path's sphere query (CPU tests; TPU uses
-    the Pallas kernel).  Same math as hittable.rs:319-338 via [S, B]
-    broadcasts of the well-conditioned |oc|^2 form."""
+    """Brute-force sphere query over [S, B] broadcasts: (t f32[B], BIG =
+    miss; idx i32[B], -1 = miss).  Same math as hittable.rs:319-338 in the
+    well-conditioned |oc|^2 form."""
     ox, oy, oz = rays[0][None], rays[1][None], rays[2][None]
     dx, dy, dz = rays[3][None], rays[4][None], rays[5][None]
-    c = scene.sph_packed  # [S_pad, 4]
-    cx, cy, cz, rad = c[:, 0:1], c[:, 1:2], c[:, 2:3], c[:, 3:4]
+    c = scene.sph_center  # [S, 3]
+    cx, cy, cz = c[:, 0:1], c[:, 1:2], c[:, 2:3]
+    rad = scene.sph_radius[:, None]
     ocx, ocy, ocz = cx - ox, cy - oy, cz - oz
     a = dx * dx + dy * dy + dz * dz
     h = dx * ocx + dy * ocy + dz * ocz
@@ -530,6 +531,26 @@ def triangle_nearest_rows(
     idx = jnp.argmin(t, axis=0).astype(jnp.int32)  # [B]
     t_best = jnp.min(t, axis=0)
     return t_best, idx
+
+
+def nearest_rows(
+    scene: SceneData, rays: jnp.ndarray, t_min: float, t_max: float, compat: CompatConfig
+) -> tuple[jnp.ndarray, jnp.ndarray]:
+    """Nearest primitive over all spheres and triangles (XLA rows): (t
+    f32[B], BIG = miss; prim i32[B] global id, -1 = miss).  A sphere wins
+    a tie with a triangle."""
+    n = rays.shape[1]
+    if scene.num_spheres > 0:
+        t_s, id_s = sphere_nearest_rows(scene, rays, t_min, t_max)
+    else:
+        t_s, id_s = jnp.full((n,), BIG, jnp.float32), jnp.full((n,), -1, jnp.int32)
+    if scene.num_triangles == 0:
+        return t_s, id_s
+    t_t, id_t = triangle_nearest_rows(scene, rays, t_min, t_max, compat)
+    tri_better = t_t < t_s
+    t_best = jnp.where(tri_better, t_t, t_s)
+    prim = jnp.where(tri_better, id_t + scene.num_spheres, id_s)
+    return t_best, jnp.where(t_best < BIG, prim, -1)
 
 
 def _sky_rows(scene: SceneData, dx, dy, dz):

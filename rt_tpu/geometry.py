@@ -10,10 +10,10 @@ Reference behavior being matched:
 - Nearest hit: dense (t, prim_id) records with a +inf miss sentinel replace
   the reference's ``Option<Intersection>`` (intersection.rs:8-15).
 
-TPU-first formulation: the per-(ray, sphere) quadratic coefficients factor
-into two (N,3)x(3,S) matmuls (d.c and o.c) plus rank-1 terms, so brute-force
-sphere intersection rides the MXU; the min-reduction over primitives is a
-VPU reduce.  Large scenes use the BVH path (rt_tpu/bvh) instead.
+Batched formulation: the per-(ray, sphere) quadratic coefficients factor
+into two (N,3)x(3,S) products (d.c and o.c) plus rank-1 terms, followed by
+a min-reduction over primitives.  Large scenes use the BVH path
+(rt_tpu/bvh) instead.
 
 Divergences (documented):
 - The reference rejects sphere hits whose UV comes out NaN on glancing blows
@@ -28,16 +28,16 @@ from __future__ import annotations
 import jax
 import numpy as np
 import jax.numpy as jnp
-from flax import struct
 
 from rt_tpu.config import CompatConfig
+from rt_tpu.pytree import PyTreeNode
 from rt_tpu.scene import SceneData
 
 BIG = np.float32(3.0e38)  # numpy: module-level jnp would init a backend at import
 TRI_EPS = np.float32(1.0e-7)  # f32 analog of f64::EPSILON (hittable.rs:428,461)
 
 
-class HitRecord(struct.PyTreeNode):
+class HitRecord(PyTreeNode):
     """Dense SoA hit payload (reference analog: Intersection,
     intersection.rs:8-15; miss encoded as hit=False / t=BIG / prim=-1)."""
 
@@ -59,12 +59,16 @@ class HitRecord(struct.PyTreeNode):
 def sphere_candidate_t(org, dirn, center, radius, t_min, t_max):
     """Candidate hit distance per (ray, sphere) pair: f32[N,S].
 
-    MXU mapping: d.c and o.c are (N,3)x(3,S) matmuls; everything else is
-    rank-1 broadcast math.  Root selection matches hittable.rs:330-338
-    (near root if in range, else far root, else miss).
+    d.c and o.c are (N,3)x(3,S) products; everything else is rank-1
+    broadcast math.  Root selection matches hittable.rs:330-338 (near root
+    if in range, else far root, else miss).  The products run at full f32
+    precision: c_coef = |c|^2 - 2 o.c + |o|^2 - r^2 cancels terms of order
+    r^2 (1e6 for the ground sphere), which TF32's 10-bit mantissa would
+    swamp.
     """
-    d_dot_c = dirn @ center.T  # [N,S] MXU
-    o_dot_c = org @ center.T  # [N,S] MXU
+    highest = jax.lax.Precision.HIGHEST
+    d_dot_c = jnp.matmul(dirn, center.T, precision=highest)  # [N,S]
+    o_dot_c = jnp.matmul(org, center.T, precision=highest)  # [N,S]
     a = jnp.sum(dirn * dirn, axis=-1)  # [N]
     d_dot_o = jnp.sum(dirn * org, axis=-1)  # [N]
     c_sq = jnp.sum(center * center, axis=-1)  # [S]
@@ -196,7 +200,9 @@ def triangle_uv(uv_abc, u, v, compat: CompatConfig):
         return lo + (hi - lo) * jnp.stack([u, v], axis=-1)
     w = 1.0 - u - v
     bary = jnp.stack([w, u, v], axis=-1)  # a, b, c weights
-    return jnp.einsum("...k,...kd->...d", bary, uv_abc)
+    return jnp.einsum(
+        "...k,...kd->...d", bary, uv_abc, precision=jax.lax.Precision.HIGHEST
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -273,6 +279,13 @@ def hit_attributes(
     ao = org - a
     bu = jnp.sum(ao * u_vec, axis=-1) * inv_det
     bv = jnp.sum(dirn * jnp.cross(ao, e1), axis=-1) * inv_det
+    # Triangle hit points from the barycentrics, not o + t d: they lie on
+    # the triangle's plane exactly, so a texture evaluated there does not
+    # follow the sign of o + t d's rounding error (a checker on an
+    # axis-aligned triangle sits on a cell boundary, and that sign differs
+    # between backends).
+    t_point = a + bu[:, None] * e1 + bv[:, None] * e2
+    point = jnp.where((hit & ~is_sphere)[:, None], t_point, point)
     t_normal = scene.tri_normal[t_idx]
     t_front = jnp.sum(dirn * t_normal, axis=-1) <= 0.0  # hittable.rs:464
     t_uv = triangle_uv(scene.tri_uv[t_idx], bu, bv, compat)
@@ -305,19 +318,11 @@ def nearest_hit(
     impl:
       - "auto": BVH when the scene has one, else XLA brute force.  Fully
         differentiable (the gradient path must use this).
-      - "pallas": fused Pallas sphere kernel (rt_tpu/pallas_ops.py) +
-        XLA triangles; forward-only.  Falls back to "auto" off-TPU.
       - "detached": detached-argmin winner search + differentiable
         re-evaluation (used by trace_radiance_diff).  Applies only to
         bvh-less scenes; with a BVH it falls through to the BVH diff
         path below (same detach-then-recompute structure).
     """
-    if impl == "pallas" and scene.bvh is None:
-        from rt_tpu import pallas_ops
-
-        if pallas_ops.available():
-            t, prim = _nearest_pallas(scene, org, dirn, t_min, t_max, compat)
-            return hit_attributes(scene, org, dirn, t, prim, compat)
     if impl == "detached" and scene.bvh is None:
         t, prim = nearest_search_detached(scene, org, dirn, t_min, t_max, compat)
         return hit_attributes(scene, org, dirn, t, prim, compat)
@@ -337,49 +342,16 @@ def nearest_search_detached(
     scene: SceneData, org, dirn, t_min, t_max, compat: CompatConfig
 ) -> tuple[jnp.ndarray, jnp.ndarray]:
     """Differentiable (t, prim) via the detached-decision estimator (the
-    same convention nearest_hit_bvh_diff uses): the winner SEARCH runs
-    fully stop_gradient'd — through the fused Pallas kernel on TPU — so
-    reverse-mode never materializes the O(N*P) candidate tensors, and only
-    the winner's t is recomputed differentiably.  Gradients match the
-    brute-force path a.e. (the argmin winner is locally constant)."""
-    from rt_tpu import pallas_ops
+    same convention nearest_hit_bvh_diff uses): the brute-force winner
+    SEARCH runs fully stop_gradient'd, so reverse mode never keeps the
+    O(N*P) candidate tensors, and only the winner's t is recomputed
+    differentiably.  Gradients match the brute-force path a.e. (the argmin
+    winner is locally constant)."""
     from rt_tpu.bvh.traverse import _prim_t
 
     sg = jax.lax.stop_gradient
     scene_sg = jax.tree.map(sg, scene)
-    if pallas_ops.available():
-        _, prim = _nearest_pallas(scene_sg, sg(org), sg(dirn), t_min, t_max, compat)
-    else:
-        _, prim = nearest_hit_bruteforce(
-            scene_sg, sg(org), sg(dirn), t_min, t_max, compat
-        )
+    _, prim = nearest_hit_bruteforce(scene_sg, sg(org), sg(dirn), t_min, t_max, compat)
     t = _prim_t(scene, jnp.maximum(prim, 0), org, dirn, t_min, t_max, compat)
     t = jnp.where(prim >= 0, t, BIG)
     return t, prim
-
-
-def _nearest_pallas(scene: SceneData, org, dirn, t_min, t_max, compat: CompatConfig):
-    """Fused-kernel spheres + XLA triangles, merged to the global nearest."""
-    from rt_tpu import pallas_ops
-
-    t_best = jnp.full(org.shape[:1], BIG, jnp.float32)
-    prim_best = jnp.full(org.shape[:1], -1, jnp.int32)
-    if scene.num_spheres > 0:
-        s_t, s_idx = pallas_ops.sphere_nearest(
-            org, dirn, scene.sph_center, scene.sph_radius, float(t_min), float(t_max)
-        )
-        better = s_t < t_best
-        t_best = jnp.where(better, s_t, t_best)
-        prim_best = jnp.where(better & (s_idx >= 0), s_idx, prim_best)
-    if scene.num_triangles > 0:
-        tt, _, _ = triangle_candidate(
-            org, dirn, scene.tri_a, scene.tri_b, scene.tri_c, t_min, t_max, compat
-        )
-        t_idx = jnp.argmin(tt, axis=-1)
-        t_t = jnp.take_along_axis(tt, t_idx[:, None], axis=-1)[:, 0]
-        better = t_t < t_best
-        t_best = jnp.where(better, t_t, t_best)
-        prim_best = jnp.where(
-            better, t_idx.astype(jnp.int32) + scene.num_spheres, prim_best
-        )
-    return t_best, prim_best

@@ -5,10 +5,10 @@ nearest hit in [0.001, t_max) -> scatter -> Russian roulette at every depth
 with p = max(attenuation channel) and survivor scaled 1/p (camera.rs:280-293)
 -> recurse to max_depth=100; miss -> sky; absorb -> black.
 
-TPU inversion: recursion cannot exist on TPU.  The integrator here advances
-a SoA megabatch of rays (origin, direction, throughput, radiance, alive)
-through a bounded ``lax.while_loop`` (forward) or fixed-length ``lax.scan``
-(differentiable) with masked termination:
+Batched inversion: a per-ray recursion does not batch.  The integrator
+here advances a SoA megabatch of rays (origin, direction, throughput,
+radiance, alive) through a bounded ``lax.while_loop`` (forward) or
+fixed-length ``lax.scan`` (differentiable) with masked termination:
 
   radiance_i = sum over bounces of [throughput * sky on the miss bounce]
   throughput *= attenuation / p   (Russian-roulette-scaled, masked)
@@ -172,10 +172,9 @@ def trace_radiance_diff(
     @jax.checkpoint
     def step(state, depth):
         bounce_key = jax.random.fold_in(key, depth)
-        # "detached" routes the winner search through the fused Pallas
-        # kernel under stop_gradient (geometry.nearest_hit), so neither
-        # the forward scan nor its rematerialized backward ever builds
-        # the O(N*P) brute-force candidate tensors.
+        # "detached" runs the winner search under stop_gradient
+        # (geometry.nearest_hit), so the backward pass never keeps the
+        # O(N*P) brute-force candidate tensors.
         return (
             _bounce_step(scene, diff_cfg, state, bounce_key, depth, impl="detached"),
             None,
@@ -193,7 +192,7 @@ def _trace_radiance_diff_fast(
     cfg: RenderConfig,
 ) -> jnp.ndarray:
     """Differentiable radiance on the fast-shade machinery: detached
-    Pallas winner search (geometry.nearest_search_detached) + differentiable
+    winner search (geometry.nearest_search_detached) + differentiable
     winner-t recompute + ONE one-hot parameter-fetch matmul per bounce
     over a differentiably re-assembled shade table
     (fast_shade.build_shade_table_diff) — replacing the megabatch path's
@@ -215,7 +214,7 @@ def _trace_radiance_diff_fast(
 
 def _fast_trace_setup(scene, origins, directions, key, cfg):
     """Shared bounce step + initial state for the fast-shade integrators:
-    detached winner search (Pallas on TPU) + differentiable winner-t
+    detached winner search + differentiable winner-t
     recompute + one one-hot parameter-fetch matmul per bounce over the
     differentiably re-assembled shade table.  Both trace_radiance (early
     -exit while_loop) and trace_radiance_diff (checkpointed scan) drive

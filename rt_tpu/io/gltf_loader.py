@@ -4,7 +4,8 @@ Replaces the reference's `gltf` crate import path (hittable.rs:556-633)
 with a hand-rolled host-side parser: JSON index, buffer loading (external
 .bin files, base64 data URIs, GLB BIN chunk), accessor decoding for
 indices / POSITION / TEXCOORD_0, PBR metallic-roughness materials and
-their base-color textures (decoded via PIL from buffer views or URIs).
+their base-color textures (decoded by io.png_io.load_image from buffer
+views or URIs).
 
 Reference behaviors matched (each behind honest defaults):
 - Every primitive's material maps to Metal with fuzz = roughness_factor
@@ -74,25 +75,18 @@ def load_gltf(path: str, apply_node_transforms: bool = False) -> list[dict]:
         return np.ascontiguousarray(arr)
 
     def image_array(idx: int) -> np.ndarray | None:
-        import io as _io
-
-        from PIL import Image
+        from rt_tpu.io.png_io import load_image
 
         img = doc["images"][idx]
         if "uri" in img:
             uri = img["uri"]
             if uri.startswith("data:"):
-                payload = base64.b64decode(uri.split(",", 1)[1])
-                pil = Image.open(_io.BytesIO(payload))
-            else:
-                pil = Image.open(os.path.join(base_dir, uri))
-        else:
-            view = doc["bufferViews"][img["bufferView"]]
-            data = buffer_data[view["buffer"]]
-            off = view.get("byteOffset", 0)
-            payload = bytes(data[off : off + view["byteLength"]])
-            pil = Image.open(_io.BytesIO(payload))
-        return np.asarray(pil.convert("RGB"), np.float32) / 255.0
+                return load_image(base64.b64decode(uri.split(",", 1)[1]))
+            return load_image(os.path.join(base_dir, uri))
+        view = doc["bufferViews"][img["bufferView"]]
+        data = buffer_data[view["buffer"]]
+        off = view.get("byteOffset", 0)
+        return load_image(bytes(data[off : off + view["byteLength"]]))
 
     # Node transforms (corrected mode): world matrix per mesh instance.
     mesh_transforms: dict[int, list[np.ndarray]] = {}

@@ -1,21 +1,20 @@
-"""Pallas TPU kernels for the intersection hot path.
+"""Fused nearest-primitive query and shade fetch for the fast wavefront.
 
-The XLA brute-force sphere query (geometry.sphere_candidate_t) materializes
-[N,S] f32 intermediates in HBM — ~6 arrays of rays x spheres per bounce —
-and profiles HBM-bound (~40 ms for 131k x 447 on v5e).  This kernel fuses
-the whole candidate-t computation *and* the nearest reduction into VMEM:
+One Pallas kernel, written for the GPU through the Triton route.  Each
+program owns a block of ``RAY_BLOCK`` rays and loops over the sphere and
+triangle tables in chunks of ``PRIM_CHUNK``, keeping the best (t, id) of
+every (ray, lane) pair in registers; one reduction at the end picks each
+ray's winner, and the epilogue gathers the winner's shade-table columns.
+The XLA form of the same work (``fast_shade.nearest_rows`` followed by
+``fast_shade.fetch_params``) writes a [P, B] one-hot matrix to device
+memory and multiplies it by the table in f32.
 
-- rays are packed SoA as one f32[8, N] block-tiled input (rows: origin
-  xyz, direction xyz, 2 pad rows -> exactly the (8, 128) f32 tile);
-- the sphere table f32[S,4] (center xyz, radius) is VMEM-resident and
-  reused by every grid program;
-- each program processes R rays against sphere chunks of C in a fori_loop,
-  carrying the running (best_t, best_id) in registers/VMEM;
-- HBM traffic is rays-in + (t, id)-out: ~36 B/ray instead of ~48*S B/ray.
+The math is the XLA rows' (hittable.rs:319-338 for spheres, Möller–Trumbore
+at hittable.rs:411-461 for triangles), in the same order, so the two agree
+to rounding; ties go to the lowest primitive id, as ``jnp.argmin`` does.
 
-Reference analog: this *is* the inner loop of World::hit over the BVH's
-candidate set (hittable.rs:135-149) for the all-spheres case; the math is
-hittable.rs:318-338 (half-b quadratic, near-root-else-far-root).
+:func:`nearest_shaded` is the one place that chooses between the kernel
+and the XLA rows.
 """
 
 from __future__ import annotations
@@ -23,187 +22,100 @@ from __future__ import annotations
 import functools
 
 import jax
-import numpy as np
 import jax.numpy as jnp
+import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-BIG = np.float32(3.0e38)
+from rt_tpu import fast_shade
+from rt_tpu.config import CompatConfig
+from rt_tpu.scene import SceneData
 
-RAY_TILE = 256  # rays per grid program (lanes: 2 x 128)
-SPHERE_CHUNK = 128  # spheres per inner iteration (sublanes: 16 x 8)
-TRI_CHUNK = 64  # triangles per inner iteration (9 coord rows each)
+BIG = np.float32(fast_shade.BIG)
+RAY_BLOCK = 128  # rays per program
+PRIM_CHUNK = 32  # primitives per inner-loop step
+_NO_ID = np.int32(2**31 - 1)
 
 
-def _kernel(rays_ref, sph_ref, t_ref, idx_ref, *, n_chunks, t_min, t_max):
-    rays = rays_ref[:, :]  # [8, R]
-    ox, oy, oz = rays[0:1, :], rays[1:2, :], rays[2:3, :]
-    dx, dy, dz = rays[3:4, :], rays[4:5, :], rays[5:6, :]
-    a = dx * dx + dy * dy + dz * dz
-    inv_a = 1.0 / a
+def nearest_shaded(scene: SceneData, rays, t_min, t_max, compat: CompatConfig):
+    """Nearest primitive for each ray of ``rays`` f32[8, B].
 
-    r_lanes = rays.shape[1]
-    big = 3.0e38  # python float: jnp scalars would be captured consts
-    init = (
-        jnp.full((1, r_lanes), big, jnp.float32),
-        jnp.full((1, r_lanes), -1, jnp.int32),
-    )
+    Returns (t f32[B] with BIG on a miss, prim i32[B] with -1 on a miss,
+    params f32[F, B] or None).  On the GPU the fused kernel runs and
+    ``params`` holds the winners' shade-table columns; on the CPU (where
+    the tests run) the XLA rows run and ``params`` is None, so the shading
+    step fetches the columns itself."""
+    backend = jax.default_backend()
+    if backend == "gpu":
+        return prim_nearest_shaded(
+            rays, scene.sph_center, scene.sph_radius,
+            scene.tri_a, scene.tri_b, scene.tri_c, scene.shade_table,
+            num_spheres=scene.num_spheres, num_triangles=scene.num_triangles,
+            t_min=float(t_min), t_max=float(t_max),
+            backface_cull=compat.triangle_backface_cull,
+        )
+    if backend == "cpu":
+        t, prim = fast_shade.nearest_rows(scene, rays, t_min, t_max, compat)
+        return t, prim, None
+    raise NotImplementedError(f"no intersection path for backend {backend!r}")
 
-    def chunk_body(ci, carry):
+
+def _pad_rows(rows, n_pad):
+    """Stack 1-D rows into f32[len(rows), n_pad], zero-padded: a zero-radius
+    sphere and a zero-area triangle never hit."""
+    table = jnp.stack(rows, axis=0).astype(jnp.float32)
+    return jnp.pad(table, ((0, 0), (0, n_pad - table.shape[1])))
+
+
+def _kernel(
+    rays_ref, sph_ref, tri_ref, table_ref, t_ref, prim_ref, params_ref,
+    *, n_sph_chunks, n_tri_chunks, num_spheres, t_min, t_max, backface_cull,
+):
+    rs = pl.ds(pl.program_id(0) * RAY_BLOCK, RAY_BLOCK)
+    ox, oy, oz = (rays_ref[i, rs][:, None] for i in range(3))
+    dx, dy, dz = (rays_ref[i, rs][:, None] for i in range(3, 6))
+    shape = (RAY_BLOCK, PRIM_CHUNK)
+    lane = jax.lax.broadcasted_iota(jnp.int32, shape, 1)
+    init = (jnp.full(shape, BIG, jnp.float32), jnp.zeros(shape, jnp.int32))
+
+    def keep_best(carry, t, c):
         best_t, best_i = carry
-        sph = sph_ref[pl.ds(ci * SPHERE_CHUNK, SPHERE_CHUNK), :]  # [C,4]
-        cx, cy, cz, rad = sph[:, 0:1], sph[:, 1:2], sph[:, 2:3], sph[:, 3:4]
-
-        ocx = cx - ox  # [C,R] broadcast
-        ocy = cy - oy
-        ocz = cz - oz
-        h = dx * ocx + dy * ocy + dz * ocz
-        c = ocx * ocx + ocy * ocy + ocz * ocz - rad * rad
-        disc = h * h - a * c
-        sd = jnp.sqrt(jnp.maximum(disc, 0.0))
-        t0 = (h - sd) * inv_a
-        t1 = (h + sd) * inv_a
-        t_cand = jnp.where(t0 >= t_min, t0, t1)
-        valid = (disc >= 0.0) & (rad > 0.0) & (t_cand >= t_min) & (t_cand < t_max)
-        t_cand = jnp.where(valid, t_cand, big)
-
-        cmin = jnp.min(t_cand, axis=0, keepdims=True)  # [1,R]
-        ids = (
-            jax.lax.broadcasted_iota(jnp.int32, t_cand.shape, 0)
-            + ci * SPHERE_CHUNK
-        )
-        sel = jnp.min(
-            jnp.where(t_cand == cmin, ids, jnp.int32(2**30)), axis=0, keepdims=True
-        )
-        better = cmin < best_t
+        better = t < best_t
         return (
-            jnp.where(better, cmin, best_t),
-            jnp.where(better, sel, best_i),
+            jnp.where(better, t, best_t),
+            jnp.where(better, lane + c * PRIM_CHUNK, best_i),
         )
 
-    best_t, best_i = jax.lax.fori_loop(0, n_chunks, chunk_body, init)
-    t_ref[0:1, :] = best_t
-    idx_ref[0:1, :] = best_i
-
-
-@functools.partial(jax.jit, static_argnames=("t_min", "t_max", "interpret"))
-def sphere_nearest(
-    org: jnp.ndarray,  # f32[N,3]
-    dirn: jnp.ndarray,  # f32[N,3]
-    centers: jnp.ndarray,  # f32[S,3]
-    radius: jnp.ndarray,  # f32[S]
-    t_min: float,
-    t_max: float,
-    interpret: bool = False,
-) -> tuple[jnp.ndarray, jnp.ndarray]:
-    """Nearest sphere per ray: (t f32[N] with BIG=miss, idx i32[N] with -1)."""
-    n = org.shape[0]
-    s = centers.shape[0]
-    n_pad = -(-n // RAY_TILE) * RAY_TILE
-    s_pad = -(-s // SPHERE_CHUNK) * SPHERE_CHUNK
-
-    rays = jnp.zeros((8, n_pad), jnp.float32)
-    rays = rays.at[0:3, :n].set(org.T)
-    rays = rays.at[3:6, :n].set(dirn.T)
-    # Padded lanes keep direction (1,1,1) so 1/a stays finite.
-    if n_pad > n:
-        rays = rays.at[3:6, n:].set(1.0)
-
-    sph = jnp.zeros((s_pad, 4), jnp.float32)
-    sph = sph.at[:s, 0:3].set(centers)
-    sph = sph.at[:s, 3].set(radius)  # padded radius 0 => never valid
-
-    grid = (n_pad // RAY_TILE,)
-    kernel = functools.partial(
-        _kernel,
-        n_chunks=s_pad // SPHERE_CHUNK,
-        t_min=float(t_min),
-        t_max=float(t_max),
-    )
-    t, idx = pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((8, RAY_TILE), lambda i: (0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec((s_pad, 4), lambda i: (0, 0), memory_space=pltpu.VMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((1, RAY_TILE), lambda i: (0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, RAY_TILE), lambda i: (0, i), memory_space=pltpu.VMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((1, n_pad), jnp.float32),
-            jax.ShapeDtypeStruct((1, n_pad), jnp.int32),
-        ],
-        interpret=interpret,
-    )(rays, sph)
-    return t[0, :n], idx[0, :n]
-
-
-def _prim_kernel(rays_ref, sph_ref, tri_ref, t_ref, idx_ref, *, n_sph_chunks,
-                 n_tri_chunks, n_spheres, t_min, t_max, backface_cull):
-    """Unified nearest-prim kernel: sphere chunks then triangle chunks.
-
-    Triangle rows in ``tri_ref`` f32[T_pad, 12]: a.xyz, e1.xyz, e2.xyz,
-    valid flag, pad, pad.  Winner ids are global prim ids (spheres first),
-    matching the scene convention.
-    Math: spheres hittable.rs:318-338; triangles (Möller–Trumbore with the
-    det < EPS backface cull) hittable.rs:411-461.
-    """
-    rays = rays_ref[:, :]
-    ox, oy, oz = rays[0:1, :], rays[1:2, :], rays[2:3, :]
-    dx, dy, dz = rays[3:4, :], rays[4:5, :], rays[5:6, :]
-    a = dx * dx + dy * dy + dz * dz
-    inv_a = 1.0 / a
-
-    r_lanes = rays.shape[1]
-    big = 3.0e38
-    init = (
-        jnp.full((1, r_lanes), big, jnp.float32),
-        jnp.full((1, r_lanes), -1, jnp.int32),
-    )
-
-    def sphere_chunk(ci, carry):
-        best_t, best_i = carry
-        sph = sph_ref[pl.ds(ci * SPHERE_CHUNK, SPHERE_CHUNK), :]
-        cx, cy, cz, rad = sph[:, 0:1], sph[:, 1:2], sph[:, 2:3], sph[:, 3:4]
-        ocx = cx - ox
-        ocy = cy - oy
-        ocz = cz - oz
+    def sphere_chunk(c, carry):
+        cs = pl.ds(c * PRIM_CHUNK, PRIM_CHUNK)
+        ocx = sph_ref[0, cs][None, :] - ox
+        ocy = sph_ref[1, cs][None, :] - oy
+        ocz = sph_ref[2, cs][None, :] - oz
+        rad = sph_ref[3, cs][None, :]
+        a = dx * dx + dy * dy + dz * dz
         h = dx * ocx + dy * ocy + dz * ocz
-        c = ocx * ocx + ocy * ocy + ocz * ocz - rad * rad
-        disc = h * h - a * c
+        cc = ocx * ocx + ocy * ocy + ocz * ocz - rad * rad
+        disc = h * h - a * cc
         sd = jnp.sqrt(jnp.maximum(disc, 0.0))
+        inv_a = 1.0 / a
         t0 = (h - sd) * inv_a
         t1 = (h + sd) * inv_a
-        t_cand = jnp.where(t0 >= t_min, t0, t1)
-        valid = (disc >= 0.0) & (rad > 0.0) & (t_cand >= t_min) & (t_cand < t_max)
-        t_cand = jnp.where(valid, t_cand, big)
-        cmin = jnp.min(t_cand, axis=0, keepdims=True)
-        ids = jax.lax.broadcasted_iota(jnp.int32, t_cand.shape, 0) + ci * SPHERE_CHUNK
-        sel = jnp.min(jnp.where(t_cand == cmin, ids, jnp.int32(2**30)), axis=0, keepdims=True)
-        better = cmin < best_t
-        return (jnp.where(better, cmin, best_t), jnp.where(better, sel, best_i))
+        t = jnp.where(t0 >= t_min, t0, t1)
+        ok = (disc >= 0.0) & (rad > 0.0) & (t >= t_min) & (t < t_max)
+        return keep_best(carry, jnp.where(ok, t, BIG), c)
 
-    def tri_chunk(ci, carry):
-        best_t, best_i = carry
-        tri = tri_ref[pl.ds(ci * TRI_CHUNK, TRI_CHUNK), :]
-        ax_, ay_, az_ = tri[:, 0:1], tri[:, 1:2], tri[:, 2:3]
-        e1x, e1y, e1z = tri[:, 3:4], tri[:, 4:5], tri[:, 5:6]
-        e2x, e2y, e2z = tri[:, 6:7], tri[:, 7:8], tri[:, 8:9]
-        live = tri[:, 9:10]
+    def triangle_chunk(c, carry):
+        cs = pl.ds(c * PRIM_CHUNK, PRIM_CHUNK)
+        ax, ay, az, e1x, e1y, e1z, e2x, e2y, e2z = (
+            tri_ref[i, cs][None, :] for i in range(9)
+        )
         uvx = dy * e2z - dz * e2y
         uvy = dz * e2x - dx * e2z
         uvz = dx * e2y - dy * e2x
         det = e1x * uvx + e1y * uvy + e1z * uvz
-        if backface_cull:
-            det_ok = det > 1e-7
-        else:
-            det_ok = jnp.abs(det) > 1e-7
+        det_ok = det > 1e-7 if backface_cull else jnp.abs(det) > 1e-7
         inv_det = 1.0 / jnp.where(det_ok, det, 1.0)
-        aox = ox - ax_
-        aoy = oy - ay_
-        aoz = oz - az_
+        aox, aoy, aoz = ox - ax, oy - ay, oz - az
         u = (aox * uvx + aoy * uvy + aoz * uvz) * inv_det
         vvx = aoy * e1z - aoz * e1y
         vvy = aoz * e1x - aox * e1z
@@ -211,840 +123,83 @@ def _prim_kernel(rays_ref, sph_ref, tri_ref, t_ref, idx_ref, *, n_sph_chunks,
         v = (dx * vvx + dy * vvy + dz * vvz) * inv_det
         t = (e2x * vvx + e2y * vvy + e2z * vvz) * inv_det
         ok = (
-            det_ok
-            & (live > 0.5)
-            & (u >= 0.0)
-            & (u <= 1.0)
-            & (v >= 0.0)
-            & (u + v <= 1.0)
-            & (t >= t_min)
-            & (t < t_max)
-            & (t > 1e-7)
+            det_ok & (u >= 0.0) & (u <= 1.0) & (v >= 0.0) & (u + v <= 1.0)
+            & (t >= t_min) & (t < t_max) & (t > 1e-7)
         )
-        t_cand = jnp.where(ok, t, big)
-        cmin = jnp.min(t_cand, axis=0, keepdims=True)
-        ids = (
-            jax.lax.broadcasted_iota(jnp.int32, t_cand.shape, 0)
-            + ci * TRI_CHUNK
-            + n_spheres
-        )
-        sel = jnp.min(jnp.where(t_cand == cmin, ids, jnp.int32(2**30)), axis=0, keepdims=True)
-        better = cmin < best_t
-        return (jnp.where(better, cmin, best_t), jnp.where(better, sel, best_i))
+        return keep_best(carry, jnp.where(ok, t, BIG), c)
 
-    carry = jax.lax.fori_loop(0, n_sph_chunks, sphere_chunk, init)
-    carry = jax.lax.fori_loop(0, n_tri_chunks, tri_chunk, carry)
-    best_t, best_i = carry
-    t_ref[0:1, :] = best_t
-    idx_ref[0:1, :] = best_i
-
-
-@functools.partial(jax.jit, static_argnames=("t_min", "t_max", "backface_cull", "n_spheres", "interpret"))
-def prim_nearest_packed(
-    rays: jnp.ndarray,  # f32[8, N]
-    sph_packed: jnp.ndarray,  # f32[S_pad, 4]
-    tri_packed: jnp.ndarray,  # f32[T_pad, 12]
-    n_spheres: int,
-    t_min: float,
-    t_max: float,
-    backface_cull: bool = True,
-    interpret: bool = False,
-) -> tuple[jnp.ndarray, jnp.ndarray]:
-    """Nearest primitive over spheres + triangles in one fused kernel.
-
-    Returns (t f32[N], global prim id i32[N] with -1 = miss)."""
-    n = rays.shape[1]
-    s_pad = sph_packed.shape[0]
-    t_pad = tri_packed.shape[0]
-    assert n % RAY_TILE == 0 and s_pad % SPHERE_CHUNK == 0 and t_pad % TRI_CHUNK == 0
-
-    kernel = functools.partial(
-        _prim_kernel,
-        n_sph_chunks=s_pad // SPHERE_CHUNK,
-        n_tri_chunks=t_pad // TRI_CHUNK,
-        n_spheres=int(n_spheres),
-        t_min=float(t_min),
-        t_max=float(t_max),
-        backface_cull=bool(backface_cull),
-    )
-    t, idx = pl.pallas_call(
-        kernel,
-        grid=(n // RAY_TILE,),
-        in_specs=[
-            pl.BlockSpec((8, RAY_TILE), lambda i: (0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec((s_pad, 4), lambda i: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((t_pad, 12), lambda i: (0, 0), memory_space=pltpu.VMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((1, RAY_TILE), lambda i: (0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, RAY_TILE), lambda i: (0, i), memory_space=pltpu.VMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((1, n), jnp.float32),
-            jax.ShapeDtypeStruct((1, n), jnp.int32),
-        ],
-        interpret=interpret,
-    )(rays, sph_packed, tri_packed)
-    return t[0], idx[0]
-
-
-@functools.partial(jax.jit, static_argnames=("t_min", "t_max", "interpret"))
-def sphere_nearest_packed(
-    rays: jnp.ndarray,  # f32[8, N] (org xyz rows 0-2, dir xyz rows 3-5)
-    sph_packed: jnp.ndarray,  # f32[S_pad, 4] (center xyz, radius; pad r=0)
-    t_min: float,
-    t_max: float,
-    interpret: bool = False,
-) -> tuple[jnp.ndarray, jnp.ndarray]:
-    """Zero-copy variant for callers that already keep ray state in the
-    kernel layout (the persistent wavefront): no transposes, no padding.
-    N must be a multiple of RAY_TILE and S_pad of SPHERE_CHUNK.
-    """
-    n = rays.shape[1]
-    s_pad = sph_packed.shape[0]
-    assert n % RAY_TILE == 0 and s_pad % SPHERE_CHUNK == 0
-
-    kernel = functools.partial(
-        _kernel,
-        n_chunks=s_pad // SPHERE_CHUNK,
-        t_min=float(t_min),
-        t_max=float(t_max),
-    )
-    t, idx = pl.pallas_call(
-        kernel,
-        grid=(n // RAY_TILE,),
-        in_specs=[
-            pl.BlockSpec((8, RAY_TILE), lambda i: (0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec((s_pad, 4), lambda i: (0, 0), memory_space=pltpu.VMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((1, RAY_TILE), lambda i: (0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, RAY_TILE), lambda i: (0, i), memory_space=pltpu.VMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((1, n), jnp.float32),
-            jax.ShapeDtypeStruct((1, n), jnp.int32),
-        ],
-        interpret=interpret,
-    )(rays, sph_packed)
-    return t[0], idx[0]
-
-
-def _cluster_kernel(
-    rays_ref,
-    ss_ref,  # sphere super AABBs [Ss, 8] (SMEM)
-    sc_ref,  # sphere cluster AABBs [Ms_pad, 8] (SMEM)
-    sp_ref,  # sphere slots [4, Ms_pad*128]
-    ts_ref,  # triangle super AABBs [St, 8] (SMEM)
-    tc_ref,  # triangle cluster AABBs [Mt_pad, 8] (SMEM)
-    tp_ref,  # triangle slots [12, Mt_pad*128]
-    t_ref,
-    idx_ref,
-    bt_scr,  # scratch [R, 1] best t
-    bi_scr,  # scratch [R, 1] best slot id
-    *,
-    n_s_supers,
-    n_t_supers,
-    n_sph_slots,
-    t_min,
-    t_max,
-    backface_cull,
-):
-    """Two-level clustered nearest-hit kernel.
-
-    supers -> (pl.when) clusters -> (pl.when) fixed 128-slot prim chunks.
-    A chunk is skipped when no ray in this tile enters its AABB with entry
-    distance below its current best t — the SIMD-coherent form of BVH
-    pruning (hittable.rs:135-149's shrinking-range walk).
-
-    Orientation: rays live on SUBLANES ([R, 1] columns), primitives on
-    LANES ([1, 128] chunk rows), so chunk math is [R, 128] with zero
-    per-chunk transposes; prim/AABB tables keep their fields on sublanes,
-    the VMEM-exact layout.
-    """
-    big = 3.0e38
-    rays = rays_ref[:, :].T  # [R, 8] — one relayout per tile
-    ox, oy, oz = rays[:, 0:1], rays[:, 1:2], rays[:, 2:3]  # [R,1]
-    dx, dy, dz = rays[:, 3:4], rays[:, 4:5], rays[:, 5:6]
-    a = dx * dx + dy * dy + dz * dz
-    inv_a = 1.0 / a
-    tiny = 1.0e-20
-    inv_dx = 1.0 / jnp.where(jnp.abs(dx) > tiny, dx, tiny)
-    inv_dy = 1.0 / jnp.where(jnp.abs(dy) > tiny, dy, tiny)
-    inv_dz = 1.0 / jnp.where(jnp.abs(dz) > tiny, dz, tiny)
-
-    bt_scr[:, :] = jnp.full(bt_scr.shape, big, jnp.float32)
-    bi_scr[:, :] = jnp.full(bi_scr.shape, -1, jnp.int32)
-
-    def any_enters(ref, ci):  # AABB tables live in SMEM: arbitrary
-        # dynamic scalar indexing (VMEM lane-dim dynamic slices must be
-        # 128-aligned, which cluster ids are not).  Tables are [M, 8].
-        lx, ly, lz = ref[ci, 0], ref[ci, 1], ref[ci, 2]
-        hx, hy, hz = ref[ci, 3], ref[ci, 4], ref[ci, 5]
-        t0x = (lx - ox) * inv_dx
-        t1x = (hx - ox) * inv_dx
-        t0y = (ly - oy) * inv_dy
-        t1y = (hy - oy) * inv_dy
-        t0z = (lz - oz) * inv_dz
-        t1z = (hz - oz) * inv_dz
-        tn = jnp.maximum(
-            jnp.maximum(jnp.minimum(t0x, t1x), jnp.minimum(t0y, t1y)),
-            jnp.maximum(jnp.minimum(t0z, t1z), 0.0),
-        )
-        tf = jnp.minimum(
-            jnp.minimum(jnp.maximum(t0x, t1x), jnp.maximum(t0y, t1y)),
-            jnp.maximum(t0z, t1z),
-        )
-        m = (tn <= tf) & (tf >= 0.0) & (tn < bt_scr[:, :])
-        return jnp.any(m)
-
-    def update_best(t_cand, base_id):
-        cmin = jnp.min(t_cand, axis=1, keepdims=True)  # [R,1]
-        ids = jax.lax.broadcasted_iota(jnp.int32, t_cand.shape, 1) + base_id
-        sel = jnp.min(
-            jnp.where(t_cand == cmin, ids, jnp.int32(2**30)), axis=1, keepdims=True
-        )
-        better = cmin < bt_scr[:, :]
-        bt_scr[:, :] = jnp.where(better, cmin, bt_scr[:, :])
-        bi_scr[:, :] = jnp.where(better, sel, bi_scr[:, :])
-
-    # ---- spheres ----------------------------------------------------------
-    def s_cluster(ci, _):
-        @pl.when(any_enters(sc_ref, ci))
-        def _():
-            off = pl.multiple_of(ci * 128, 128)
-            sph = sp_ref[:, pl.ds(off, 128)]  # [4, 128]
-            cx, cy, cz, rad = sph[0:1, :], sph[1:2, :], sph[2:3, :], sph[3:4, :]
-            ocx = cx - ox  # [R, 128]
-            ocy = cy - oy
-            ocz = cz - oz
-            h = dx * ocx + dy * ocy + dz * ocz
-            c = ocx * ocx + ocy * ocy + ocz * ocz - rad * rad
-            disc = h * h - a * c
-            sd = jnp.sqrt(jnp.maximum(disc, 0.0))
-            t0 = (h - sd) * inv_a
-            t1 = (h + sd) * inv_a
-            t_cand = jnp.where(t0 >= t_min, t0, t1)
-            valid = (disc >= 0.0) & (rad > 0.0) & (t_cand >= t_min) & (t_cand < t_max)
-            update_best(jnp.where(valid, t_cand, big), ci * 128)
-        return 0
-
-    def s_super(si, _):
-        @pl.when(any_enters(ss_ref, si))
-        def _():
-            jax.lax.fori_loop(si * 64, si * 64 + 64, s_cluster, 0)
-        return 0
-
-    if n_s_supers > 0:
-        jax.lax.fori_loop(0, n_s_supers, s_super, 0)
-
-    # ---- triangles --------------------------------------------------------
-    def t_cluster(ci, _):
-        @pl.when(any_enters(tc_ref, ci))
-        def _():
-            off = pl.multiple_of(ci * 128, 128)
-            tri = tp_ref[:, pl.ds(off, 128)]  # [12, 128]
-            ax_, ay_, az_ = tri[0:1, :], tri[1:2, :], tri[2:3, :]
-            e1x, e1y, e1z = tri[3:4, :], tri[4:5, :], tri[5:6, :]
-            e2x, e2y, e2z = tri[6:7, :], tri[7:8, :], tri[8:9, :]
-            live = tri[9:10, :]
-            uvx = dy * e2z - dz * e2y  # [R, 128]
-            uvy = dz * e2x - dx * e2z
-            uvz = dx * e2y - dy * e2x
-            det = e1x * uvx + e1y * uvy + e1z * uvz
-            if backface_cull:
-                det_ok = det > 1e-7
-            else:
-                det_ok = jnp.abs(det) > 1e-7
-            inv_det = 1.0 / jnp.where(det_ok, det, 1.0)
-            aox = ox - ax_
-            aoy = oy - ay_
-            aoz = oz - az_
-            u = (aox * uvx + aoy * uvy + aoz * uvz) * inv_det
-            vvx = aoy * e1z - aoz * e1y
-            vvy = aoz * e1x - aox * e1z
-            vvz = aox * e1y - aoy * e1x
-            v = (dx * vvx + dy * vvy + dz * vvz) * inv_det
-            t = (e2x * vvx + e2y * vvy + e2z * vvz) * inv_det
-            ok = (
-                det_ok
-                & (live > 0.5)
-                & (u >= 0.0)
-                & (u <= 1.0)
-                & (v >= 0.0)
-                & (u + v <= 1.0)
-                & (t >= t_min)
-                & (t < t_max)
-                & (t > 1e-7)
-            )
-            update_best(jnp.where(ok, t, big), ci * 128 + n_sph_slots)
-        return 0
-
-    def t_super(si, _):
-        @pl.when(any_enters(ts_ref, si))
-        def _():
-            jax.lax.fori_loop(si * 64, si * 64 + 64, t_cluster, 0)
-        return 0
-
-    if n_t_supers > 0:
-        jax.lax.fori_loop(0, n_t_supers, t_super, 0)
-
-    t_ref[0:1, :] = bt_scr[:, :].T
-    idx_ref[0:1, :] = bi_scr[:, :].T
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("n_sph_slots", "t_min", "t_max", "backface_cull", "interpret"),
-)
-def cluster_nearest(
-    rays: jnp.ndarray,  # f32[8, N]
-    sph_super: jnp.ndarray,  # f32[8, Ss]
-    sph_cluster: jnp.ndarray,  # f32[8, Ms_pad]
-    sph_slots: jnp.ndarray,  # f32[4, Ms_pad*128]
-    tri_super: jnp.ndarray,  # f32[8, St]
-    tri_cluster: jnp.ndarray,  # f32[8, Mt_pad]
-    tri_slots: jnp.ndarray,  # f32[12, Mt_pad*128]
-    n_sph_slots: int,
-    t_min: float,
-    t_max: float,
-    backface_cull: bool = True,
-    interpret: bool = False,
-) -> tuple[jnp.ndarray, jnp.ndarray]:
-    """Nearest hit via the two-level clustered kernel.
-
-    Returns (t f32[N], slot id i32[N]; sphere slots first, -1 = miss)."""
-    n = rays.shape[1]
-    assert n % RAY_TILE == 0
-
-    # Empty prim sets are encoded as one dummy super with an inverted AABB
-    # (build_clusters), which any_enters() rejects — no special-casing.
-    kernel = functools.partial(
-        _cluster_kernel,
-        n_s_supers=sph_super.shape[0],
-        n_t_supers=tri_super.shape[0],
-        n_sph_slots=int(n_sph_slots),
-        t_min=float(t_min),
-        t_max=float(t_max),
-        backface_cull=bool(backface_cull),
-    )
-    full = lambda arr: pl.BlockSpec(arr.shape, lambda i: (0, 0), memory_space=pltpu.VMEM)
-    smem = lambda arr: pl.BlockSpec(arr.shape, lambda i: (0, 0), memory_space=pltpu.SMEM)
-    t, idx = pl.pallas_call(
-        kernel,
-        grid=(n // RAY_TILE,),
-        in_specs=[
-            pl.BlockSpec((8, RAY_TILE), lambda i: (0, i), memory_space=pltpu.VMEM),
-            smem(sph_super),
-            smem(sph_cluster),
-            full(sph_slots),
-            smem(tri_super),
-            smem(tri_cluster),
-            full(tri_slots),
-        ],
-        out_specs=[
-            pl.BlockSpec((1, RAY_TILE), lambda i: (0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, RAY_TILE), lambda i: (0, i), memory_space=pltpu.VMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((1, n), jnp.float32),
-            jax.ShapeDtypeStruct((1, n), jnp.int32),
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((RAY_TILE, 1), jnp.float32),
-            pltpu.VMEM((RAY_TILE, 1), jnp.int32),
-        ],
-        interpret=interpret,
-    )(rays, sph_super, sph_cluster, sph_slots, tri_super, tri_cluster, tri_slots)
-    return t[0], idx[0]
-
-
-def _worklist_kernel(
-    rays_ref,  # f32[8, R] block
-    ssup_ref,  # sphere super AABBs f32[Ss_pad, 8] (64-cluster groups)
-    scl_ref,  # sphere cluster AABBs f32[Ms_pad, 8] (VMEM, sublane-major)
-    sp_ref,  # sphere slots f32[4, Ms_pad*128]
-    tsup_ref,  # triangle super AABBs f32[St_pad, 8]
-    tcl_ref,  # triangle cluster AABBs f32[Mt_pad, 8]
-    tp_ref,  # triangle slots f32[12, Mt_pad*128]
-    t_ref,
-    idx_ref,
-    bt_scr,  # VMEM [1, R] f32
-    bi_scr,  # VMEM [1, R] i32
-    mask_scr,  # VMEM [M_max, 128] i32 per-cluster entered masks (col 0)
-    wl_vmem,  # VMEM [1, M_pad128] i32 worklist staging (lane-major)
-    wl_smem,  # SMEM [1, M_pad128] i32 worklist
-    dma_sem,
-    *,
-    n_s_supers,
-    n_t_supers,
-    n_s_clusters,
-    n_t_clusters,
-    n_sph_slots,
-    sph_slot_base,
-    tri_slot_base,
-    t_min,
-    t_max,
-    backface_cull,
-):
-    """Branchless HIERARCHICAL two-phase clustered nearest hit.
-
-    ``pl.when`` per cluster costs ~10 us of pipeline drain on v5e, which
-    made the predicated cluster kernel slower than brute force.  This
-    kernel has NO vector-unit branches in the hot path:
-
-    phase A0: slab-test the SUPER AABBs (one per 64-cluster group) against
-             the whole ray tile, compact the entered supers to a worklist
-             (same machinery as below), DMA it to SMEM;
-    phase A: a while_loop over ENTERED supers only slab-tests their 64
-             member clusters -> entered mask per cluster (skipped supers'
-             mask rows stay zero) — coherent primary tiles touch a couple
-             of supers instead of every 64-cluster chunk;
-    phase B: arithmetic stream compaction (rank = cumsum(mask); a
-             rank-match mask-reduce writes entered ids densely) -> DMA the
-             worklist to SMEM for scalar indexing;
-    phase C: one while_loop over the ENTERED clusters only; each iteration
-             intersects a 128-prim chunk branchlessly.
-    """
-    big = 3.0e38
-    rays = rays_ref[:, :]
-    ox, oy, oz = rays[0:1, :], rays[1:2, :], rays[2:3, :]
-    dx, dy, dz = rays[3:4, :], rays[4:5, :], rays[5:6, :]
-    a = dx * dx + dy * dy + dz * dz
-    inv_a = 1.0 / a
-    tiny = 1.0e-20
-    inv_dx = 1.0 / jnp.where(jnp.abs(dx) > tiny, dx, tiny)
-    inv_dy = 1.0 / jnp.where(jnp.abs(dy) > tiny, dy, tiny)
-    inv_dz = 1.0 / jnp.where(jnp.abs(dz) > tiny, dz, tiny)
-
-    bt_scr[0:1, :] = jnp.full(bt_scr.shape, big, jnp.float32)
-    bi_scr[0:1, :] = jnp.full(bi_scr.shape, -1, jnp.int32)
-    # Phase A now fills mask rows selectively (entered supers only), so
-    # the scratch must start clean.
-    mask_scr[:, :] = jnp.zeros(mask_scr.shape, jnp.int32)
-
-    def slab_any(box):
-        """Entered mask per AABB row: box [K, 8] -> i32 [K, 1]."""
-        lx, ly, lz = box[:, 0:1], box[:, 1:2], box[:, 2:3]
-        hx, hy, hz = box[:, 3:4], box[:, 4:5], box[:, 5:6]
-        t0x = (lx - ox) * inv_dx  # [K, R]
-        t1x = (hx - ox) * inv_dx
-        t0y = (ly - oy) * inv_dy
-        t1y = (hy - oy) * inv_dy
-        t0z = (lz - oz) * inv_dz
-        t1z = (hz - oz) * inv_dz
-        tn = jnp.maximum(
-            jnp.maximum(jnp.minimum(t0x, t1x), jnp.minimum(t0y, t1y)),
-            jnp.maximum(jnp.minimum(t0z, t1z), 0.0),
-        )
-        tf = jnp.minimum(
-            jnp.minimum(jnp.maximum(t0x, t1x), jnp.maximum(t0y, t1y)),
-            jnp.maximum(t0z, t1z),
-        )
-        hit = (tn <= tf) & (tf >= 0.0) & (tn < bt_scr[0:1, :])
-        return jnp.max(hit.astype(jnp.int32), axis=1, keepdims=True)  # [K,1]
-
-    def cluster_chunk_masks(cl_ref, sid, row_base):
-        """Entered masks for super ``sid``'s 64 member clusters, written to
-        mask_scr rows [row_base + sid*64, +64) (Mosaic has no
-        dynamic_update_slice on values; scratch-ref stores with pl.ds are
-        the supported form)."""
-        off = pl.multiple_of(sid * 64, 64)
-        any_hit = slab_any(cl_ref[pl.ds(off, 64), :])
-        mask_scr[pl.ds(row_base + off, 64), 0:1] = any_hit
-
-    def compact(mask, offset):
-        """Dense worklist of entered cluster ids (+offset tag), padded -1:
-        i32[m_pad, 1] via rank-match reduction (no scatters; Mosaic has no
-        cumsum lowering, so the inclusive prefix sum is a lower-triangular
-        matmul on the MXU)."""
-        m_pad = mask.shape[0]
-        row = jax.lax.broadcasted_iota(jnp.int32, (m_pad, m_pad), 0)
-        col = jax.lax.broadcasted_iota(jnp.int32, (m_pad, m_pad), 1)
-        tri_ones = (col <= row).astype(jnp.float32)
-        rank = (
-            jnp.dot(tri_ones, mask.astype(jnp.float32),
-                    preferred_element_type=jnp.float32)
-            .astype(jnp.int32)
-            - 1
-        )  # [m_pad, 1] inclusive prefix sum - 1
-        ids = jax.lax.broadcasted_iota(jnp.int32, (m_pad, 1), 0)
-        # onehot[m, j] = (mask_m & rank_m == j); compacted_j = sum_m id_m*onehot
-        j_ids = jax.lax.broadcasted_iota(jnp.int32, (m_pad, m_pad), 1)
-        match = (rank == j_ids) & (mask > 0)  # [m, j]
-        compacted = jnp.sum(
-            jnp.where(match, ids + offset, 0), axis=0, keepdims=True
-        )  # [1, m_pad]
-        filled = jnp.sum(match.astype(jnp.int32), axis=0, keepdims=True)
-        return jnp.where(filled > 0, compacted, -1)  # [1, m_pad] lane-major
-
-    total_pad = wl_smem.shape[1]  # lane-major [1, total_pad]
-
-    def merge_lists(s_list, t_list, n_s_ent, ns_rows, nt_rows):
-        """[1, total_pad] worklist: sphere entries first, then triangle
-        entries shifted down — selected arithmetically (rank-match
-        reduce), no dynamic slicing."""
-        part = jnp.concatenate(
-            [s_list, jnp.full((1, total_pad - ns_rows), -1, jnp.int32)], axis=1
-        )
-        j_iota = jax.lax.broadcasted_iota(jnp.int32, (1, total_pad), 1)
-        t_j = jnp.clip(j_iota - n_s_ent, 0, nt_rows - 1)
-        t_gathered = jnp.sum(
-            jnp.where(
-                jax.lax.broadcasted_iota(jnp.int32, (nt_rows, total_pad), 0)
-                == t_j,
-                jnp.broadcast_to(t_list.T, (nt_rows, total_pad)),
-                0,
-            ),
-            axis=0,
-            keepdims=True,
-        )
-        return jnp.where(j_iota < n_s_ent, part, t_gathered)
-
-    def dma_worklist(wl):
-        # Whole-buffer DMA to SMEM (slices would need 128-lane alignment).
-        wl_vmem[0:1, :] = wl
-        copy = pltpu.make_async_copy(wl_vmem, wl_smem, dma_sem)
-        copy.start()
-        copy.wait()
-
-    # ---- phase A0: entered-super worklist ---------------------------------
-    s_sup_mask = slab_any(ssup_ref[:, :])  # [Ss, 1]
-    t_sup_mask = slab_any(tsup_ref[:, :])
-    n_s_sup_ent = jnp.sum(s_sup_mask)
-    sup_count = n_s_sup_ent + jnp.sum(t_sup_mask)
-    dma_worklist(
-        merge_lists(
-            compact(s_sup_mask, 0),
-            compact(t_sup_mask, n_s_supers),
-            n_s_sup_ent,
-            n_s_supers,
-            n_t_supers,
-        )
-    )
-
-    # ---- phase A: cluster masks for entered supers only -------------------
-    def a_sphere(j, _):
-        cluster_chunk_masks(scl_ref, wl_smem[0, j], 0)
-        return _
-
-    def a_tri(j, _):
-        cluster_chunk_masks(tcl_ref, wl_smem[0, j] - n_s_supers, n_s_clusters)
-        return _
-
-    def while_range(lo, hi, fn):
-        def cond(c):
-            return c < hi
-
-        def body(c):
-            fn(c, 0)
-            return c + 1
-
-        jax.lax.while_loop(cond, body, lo)
-
-    while_range(jnp.int32(0), n_s_sup_ent, a_sphere)
-    while_range(n_s_sup_ent, sup_count, a_tri)
-
-    # ---- phase B: entered-cluster worklist --------------------------------
-    s_mask = mask_scr[0:n_s_clusters, 0:1]
-    t_mask = mask_scr[n_s_clusters : n_s_clusters + n_t_clusters, 0:1]
-
-    count = jnp.sum(s_mask) + jnp.sum(t_mask)
-    n_s_entered = jnp.sum(s_mask)
-
-    s_list = compact(s_mask, 0)  # [1, ms]
-    t_list = compact(t_mask, n_s_clusters)  # [1, mt], ids tagged +ms
-    dma_worklist(
-        merge_lists(s_list, t_list, n_s_entered, n_s_clusters, n_t_clusters)
-    )
-
-    # ---- phase C: branchless loop over entered clusters only.  Rays are
-    # re-read transposed once (sublane-major) so prim chunks ([fields, 128]
-    # with prims on lanes) broadcast without per-chunk transposes.
-    rays_t = rays.T  # [R, 8]
-    oxc, oyc, ozc = rays_t[:, 0:1], rays_t[:, 1:2], rays_t[:, 2:3]
-    dxc, dyc, dzc = rays_t[:, 3:4], rays_t[:, 4:5], rays_t[:, 5:6]
-    a_c = dxc * dxc + dyc * dyc + dzc * dzc
-    inv_a_c = 1.0 / a_c
-    bt_col = jnp.full((rays_t.shape[0], 1), big, jnp.float32)
-    bi_col = jnp.full((rays_t.shape[0], 1), -1, jnp.int32)
-
-    def process_sphere(j, carry):
-        """Sphere-cluster entry: worklist[j] < n_s_clusters by construction
-        (sphere entries precede triangle entries)."""
+    def winner(carry):
         best_t, best_i = carry
-        ci = wl_smem[0, j]
-        s_off = pl.multiple_of(ci * 128, 128)
-        sph = sp_ref[:, pl.ds(s_off, 128)]  # [4, 128]
-        cx, cy, cz, rad = sph[0:1, :], sph[1:2, :], sph[2:3, :], sph[3:4, :]
-        ocx = cx - oxc  # [R, 128]
-        ocy = cy - oyc
-        ocz = cz - ozc
-        h = dxc * ocx + dyc * ocy + dzc * ocz
-        c = ocx * ocx + ocy * ocy + ocz * ocz - rad * rad
-        disc = h * h - a_c * c
-        sd = jnp.sqrt(jnp.maximum(disc, 0.0))
-        t0 = (h - sd) * inv_a_c
-        t1 = (h + sd) * inv_a_c
-        t_cand = jnp.where(t0 >= t_min, t0, t1)
-        valid = (disc >= 0.0) & (rad > 0.0) & (t_cand >= t_min) & (t_cand < t_max)
-        t_cand = jnp.where(valid, t_cand, big)
-        cmin = jnp.min(t_cand, axis=1, keepdims=True)  # [R,1]
-        ids = (
-            jax.lax.broadcasted_iota(jnp.int32, t_cand.shape, 1)
-            + ci * 128
-            + sph_slot_base
-        )
-        sel = jnp.min(
-            jnp.where(t_cand == cmin, ids, jnp.int32(2**30)), axis=1, keepdims=True
-        )
-        better = cmin < best_t
-        return (jnp.where(better, cmin, best_t), jnp.where(better, sel, best_i))
+        t = jnp.min(best_t, axis=1)
+        ids = jnp.where(best_t == t[:, None], best_i, _NO_ID)
+        return t, jnp.min(ids, axis=1)
 
-    def process_tri(j, carry):
-        """Triangle-cluster entry (tags offset by n_s_clusters)."""
-        best_t, best_i = carry
-        ci = wl_smem[0, j] - n_s_clusters
-        t_off = pl.multiple_of(ci * 128, 128)
-        tri = tp_ref[:, pl.ds(t_off, 128)]  # [12, 128]
-        ax_, ay_, az_ = tri[0:1, :], tri[1:2, :], tri[2:3, :]
-        e1x, e1y, e1z = tri[3:4, :], tri[4:5, :], tri[5:6, :]
-        e2x, e2y, e2z = tri[6:7, :], tri[7:8, :], tri[8:9, :]
-        live = tri[9:10, :]
-        uvx = dyc * e2z - dzc * e2y
-        uvy = dzc * e2x - dxc * e2z
-        uvz = dxc * e2y - dyc * e2x
-        det = e1x * uvx + e1y * uvy + e1z * uvz
-        if backface_cull:
-            det_ok = det > 1e-7
-        else:
-            det_ok = jnp.abs(det) > 1e-7
-        inv_det = 1.0 / jnp.where(det_ok, det, 1.0)
-        aox = oxc - ax_
-        aoy = oyc - ay_
-        aoz = ozc - az_
-        u = (aox * uvx + aoy * uvy + aoz * uvz) * inv_det
-        vvx = aoy * e1z - aoz * e1y
-        vvy = aoz * e1x - aox * e1z
-        vvz = aox * e1y - aoy * e1x
-        v = (dxc * vvx + dyc * vvy + dzc * vvz) * inv_det
-        tt = (e2x * vvx + e2y * vvy + e2z * vvz) * inv_det
-        valid = (
-            det_ok
-            & (live > 0.5)
-            & (u >= 0.0)
-            & (u <= 1.0)
-            & (v >= 0.0)
-            & (u + v <= 1.0)
-            & (tt >= t_min)
-            & (tt < t_max)
-            & (tt > 1e-7)
-        )
-        t_cand = jnp.where(valid, tt, big)
-        cmin = jnp.min(t_cand, axis=1, keepdims=True)
-        ids = (
-            jax.lax.broadcasted_iota(jnp.int32, t_cand.shape, 1)
-            + ci * 128
-            + n_sph_slots
-            + tri_slot_base
-        )
-        sel = jnp.min(
-            jnp.where(t_cand == cmin, ids, jnp.int32(2**30)), axis=1, keepdims=True
-        )
-        better = cmin < best_t
-        return (jnp.where(better, cmin, best_t), jnp.where(better, sel, best_i))
-
-    def while_over(lo, hi, fn, carry):
-        def cond(c):
-            return c[0] < hi
-
-        def body(c):
-            j, bt, bi = c
-            bt, bi = fn(j, (bt, bi))
-            return j + 1, bt, bi
-
-        return jax.lax.while_loop(cond, body, (lo, carry[0], carry[1]))[1:]
-
-    # Sphere entries occupy worklist[0, 0:n_s_entered); triangles follow.
-    bt_col, bi_col = while_over(jnp.int32(0), n_s_entered, process_sphere, (bt_col, bi_col))
-    bt_col, bi_col = while_over(n_s_entered, count, process_tri, (bt_col, bi_col))
-
-    t_ref[0:1, :] = bt_col.T
-    idx_ref[0:1, :] = bi_col.T
-
-
-def _prim_shade_kernel(
-    rays_ref, sph_ref, tri_ref, table_ref, t_ref, idx_ref, params_ref,
-    *, n_sph_chunks, n_tri_chunks, n_spheres, t_min, t_max, backface_cull,
-):
-    """Flat nearest-prim kernel that also emits the winner's shade-table
-    columns.  The XLA one-hot parameter fetch materializes a [P, B] f32
-    onehot in HBM (~0.7 ms/iter at P=512, B=64k); in-kernel the onehot
-    lives in VMEM and the [F, P] x [P, R] dot runs on the MXU, so the only
-    HBM traffic is the [F, N] result."""
-    _prim_kernel(
-        rays_ref, sph_ref, tri_ref, t_ref, idx_ref,
-        n_sph_chunks=n_sph_chunks, n_tri_chunks=n_tri_chunks,
-        n_spheres=n_spheres, t_min=t_min, t_max=t_max,
-        backface_cull=backface_cull,
-    )
-    best_i = idx_ref[0:1, :]  # [1, R]
-    p_pad = table_ref.shape[1]
-    ids = jax.lax.broadcasted_iota(jnp.int32, (p_pad, best_i.shape[1]), 0)
-    onehot = (ids == jnp.maximum(best_i, 0)).astype(jnp.float32)  # [P, R]
-    # HIGHEST: the TPU default rounds f32 matmul inputs to bf16, which
-    # would quantize every fetched shading parameter (colors, IOR, vertex
-    # coordinates) to 8 mantissa bits.
-    params_ref[:, :] = jnp.dot(
-        table_ref[:, :], onehot, preferred_element_type=jnp.float32,
-        precision=jax.lax.Precision.HIGHEST,
-    )
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("n_spheres", "t_min", "t_max", "backface_cull", "interpret"),
-)
-def prim_nearest_shaded(
-    rays: jnp.ndarray,  # f32[8, N]
-    sph_packed: jnp.ndarray,  # f32[S_pad, 4]
-    tri_packed: jnp.ndarray,  # f32[T_pad, 12]
-    shade_table: jnp.ndarray,  # f32[F, P_pad] (P_pad <= ~2048 for VMEM)
-    n_spheres: int,
-    t_min: float,
-    t_max: float,
-    backface_cull: bool = True,
-    interpret: bool = False,
-) -> tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray]:
-    """Fused nearest hit + parameter fetch: returns (t f32[N], prim i32[N],
-    params f32[F, N])."""
-    n = rays.shape[1]
-    s_pad = sph_packed.shape[0]
-    t_pad = tri_packed.shape[0]
-    f_rows = shade_table.shape[0]
-    assert n % RAY_TILE == 0 and s_pad % SPHERE_CHUNK == 0 and t_pad % TRI_CHUNK == 0
-
-    kernel = functools.partial(
-        _prim_shade_kernel,
-        n_sph_chunks=s_pad // SPHERE_CHUNK,
-        n_tri_chunks=t_pad // TRI_CHUNK,
-        n_spheres=int(n_spheres),
-        t_min=float(t_min),
-        t_max=float(t_max),
-        backface_cull=bool(backface_cull),
-    )
-    t, idx, params = pl.pallas_call(
-        kernel,
-        grid=(n // RAY_TILE,),
-        in_specs=[
-            pl.BlockSpec((8, RAY_TILE), lambda i: (0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec((s_pad, 4), lambda i: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((t_pad, 12), lambda i: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec(shade_table.shape, lambda i: (0, 0), memory_space=pltpu.VMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((1, RAY_TILE), lambda i: (0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, RAY_TILE), lambda i: (0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec((f_rows, RAY_TILE), lambda i: (0, i), memory_space=pltpu.VMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((1, n), jnp.float32),
-            jax.ShapeDtypeStruct((1, n), jnp.int32),
-            jax.ShapeDtypeStruct((f_rows, n), jnp.float32),
-        ],
-        interpret=interpret,
-    )(rays, sph_packed, tri_packed, shade_table)
-    return t[0], idx[0], params
-
-
-MAX_WORKLIST_CLUSTERS = 1024  # compaction builds an [M, M] match matrix
+    t_s, i_s = winner(jax.lax.fori_loop(0, n_sph_chunks, sphere_chunk, init))
+    t_t, i_t = winner(jax.lax.fori_loop(0, n_tri_chunks, triangle_chunk, init))
+    tri_better = t_t < t_s
+    t_best = jnp.where(tri_better, t_t, t_s)
+    prim = jnp.where(tri_better, i_t + num_spheres, i_s)
+    prim = jnp.where(t_best < BIG, prim, -1)
+    t_ref[rs] = t_best
+    prim_ref[rs] = prim
+    col = jnp.maximum(prim, 0)
+    for f in range(params_ref.shape[0]):
+        params_ref[f, rs] = table_ref[f, col]
 
 
 @functools.partial(
     jax.jit,
     static_argnames=(
-        "n_sph_slots", "sph_slot_base", "tri_slot_base",
-        "t_min", "t_max", "backface_cull", "interpret",
+        "num_spheres", "num_triangles", "t_min", "t_max", "backface_cull",
+        "interpret",
     ),
 )
-def cluster_worklist_nearest(
-    rays: jnp.ndarray,  # f32[8, N]
-    sph_super: jnp.ndarray,  # f32[Ss, 8] AABBs of 64-cluster groups
-    sph_cluster: jnp.ndarray,  # f32[Ms_pad, 8] sublane-major AABBs
-    sph_slots: jnp.ndarray,  # f32[4, Ms_pad*128]
-    tri_super: jnp.ndarray,  # f32[St, 8]
-    tri_cluster: jnp.ndarray,  # f32[Mt_pad, 8]
-    tri_slots: jnp.ndarray,  # f32[12, Mt_pad*128]
-    n_sph_slots: int,
-    t_min: float,
-    t_max: float,
-    backface_cull: bool = True,
-    sph_slot_base: int = 0,
-    tri_slot_base: int = 0,
-    interpret: bool = False,
-) -> tuple[jnp.ndarray, jnp.ndarray]:
-    """Branchless hierarchical clustered nearest hit (see _worklist_kernel).
+def prim_nearest_shaded(
+    rays, sph_center, sph_radius, tri_a, tri_b, tri_c, shade_table,
+    *, num_spheres: int, num_triangles: int, t_min: float, t_max: float,
+    backface_cull: bool = True, interpret: bool = False,
+):
+    """Fused nearest hit + shade fetch (see the module docstring).
 
-    ``*_slot_base`` globalize winner ids for paged tables (scene.py
-    ClusterPage).  Supers are the AABBs of consecutive 64-cluster groups
-    (cluster.build_clusters emits them in that layout).
-    Returns (t f32[N], slot id i32[N]; -1 = miss)."""
+    ``rays`` f32[8, N] with N a multiple of RAY_BLOCK; the primitive
+    arrays are SceneData's.  Returns (t f32[N], prim i32[N],
+    params f32[F, N])."""
     n = rays.shape[1]
-    ms = sph_cluster.shape[0]
-    mt = tri_cluster.shape[0]
-    assert n % RAY_TILE == 0
-    assert ms + mt <= MAX_WORKLIST_CLUSTERS, "split into pages (ClusterPage)"
-    assert sph_super.shape[0] * 64 >= ms and tri_super.shape[0] * 64 >= mt
-
-    kernel = functools.partial(
-        _worklist_kernel,
-        n_s_supers=sph_super.shape[0],
-        n_t_supers=tri_super.shape[0],
-        n_s_clusters=ms,
-        n_t_clusters=mt,
-        n_sph_slots=int(n_sph_slots),
-        sph_slot_base=int(sph_slot_base),
-        tri_slot_base=int(tri_slot_base),
-        t_min=float(t_min),
-        t_max=float(t_max),
-        backface_cull=bool(backface_cull),
+    if n % RAY_BLOCK:
+        raise ValueError(f"ray count {n} is not a multiple of {RAY_BLOCK}")
+    n_sph_chunks = -(-num_spheres // PRIM_CHUNK)
+    n_tri_chunks = -(-num_triangles // PRIM_CHUNK)
+    sph = _pad_rows(
+        [sph_center[:num_spheres, i] for i in range(3)] + [sph_radius[:num_spheres]],
+        max(n_sph_chunks, 1) * PRIM_CHUNK,
     )
-    m_total = ms + mt
-    m_lane_pad = -(-m_total // 128) * 128
-    full = lambda arr: pl.BlockSpec(arr.shape, lambda i: (0, 0), memory_space=pltpu.VMEM)
-    t, idx = pl.pallas_call(
+    a = tri_a[:num_triangles]
+    e1 = tri_b[:num_triangles] - a
+    e2 = tri_c[:num_triangles] - a
+    tri = _pad_rows(
+        [m[:, i] for m in (a, e1, e2) for i in range(3)],
+        max(n_tri_chunks, 1) * PRIM_CHUNK,
+    )
+    f_rows = shade_table.shape[0]
+    kernel = functools.partial(
+        _kernel,
+        n_sph_chunks=n_sph_chunks,
+        n_tri_chunks=n_tri_chunks,
+        num_spheres=num_spheres,
+        t_min=t_min,
+        t_max=t_max,
+        backface_cull=backface_cull,
+    )
+    return pl.pallas_call(
         kernel,
-        grid=(n // RAY_TILE,),
-        in_specs=[
-            pl.BlockSpec((8, RAY_TILE), lambda i: (0, i), memory_space=pltpu.VMEM),
-            full(sph_super),
-            full(sph_cluster),
-            full(sph_slots),
-            full(tri_super),
-            full(tri_cluster),
-            full(tri_slots),
-        ],
-        out_specs=[
-            pl.BlockSpec((1, RAY_TILE), lambda i: (0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, RAY_TILE), lambda i: (0, i), memory_space=pltpu.VMEM),
-        ],
+        grid=(n // RAY_BLOCK,),
         out_shape=[
-            jax.ShapeDtypeStruct((1, n), jnp.float32),
-            jax.ShapeDtypeStruct((1, n), jnp.int32),
+            jax.ShapeDtypeStruct((n,), jnp.float32),
+            jax.ShapeDtypeStruct((n,), jnp.int32),
+            jax.ShapeDtypeStruct((f_rows, n), jnp.float32),
         ],
-        scratch_shapes=[
-            pltpu.VMEM((1, RAY_TILE), jnp.float32),
-            pltpu.VMEM((1, RAY_TILE), jnp.int32),
-            pltpu.VMEM((m_total, 128), jnp.int32),
-            pltpu.VMEM((1, m_lane_pad), jnp.int32),
-            pltpu.SMEM((1, m_lane_pad), jnp.int32),
-            pltpu.SemaphoreType.DMA,
-        ],
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=4, num_stages=1),
         interpret=interpret,
-    )(rays, sph_super, sph_cluster, sph_slots, tri_super, tri_cluster, tri_slots)
-    return t[0], idx[0]
-
-
-def available() -> bool:
-    """Pallas TPU kernels need a TPU backend (tests use interpret mode)."""
-    return jax.default_backend() not in ("cpu",)
+        name="prim_nearest_shaded",
+    )(rays, sph, tri, shade_table)

@@ -1,21 +1,20 @@
 """Scale-out: pixel-tile sharding over a device mesh.
 
 The reference's only parallelism is Rayon work-stealing over pixels and
-samples on one machine (window.rs:270, camera.rs:317).  The TPU-native
-equivalent (SURVEY.md §5.8): a ``jax.sharding.Mesh`` with a 2-D
-('tiles', 'spp') layout —
+samples on one machine (window.rs:270, camera.rs:317).  Here (SURVEY.md
+§5.8) a ``jax.sharding.Mesh`` with a 2-D ('tiles', 'spp') layout:
 
 - **tiles** axis: pixel-tile data parallelism.  The forward sweep is
   embarrassingly parallel; zero communication until image assembly.
 - **spp** axis: sample parallelism.  The per-pixel sample mean becomes a
-  mesh reduction (XLA lowers it to an all-reduce over ICI).
+  mesh reduction (an all-reduce that XLA hands to NCCL on GPUs).
 
 Parameters (materials/textures/sky) are replicated; in the training step
-their gradients are all-reduced by the partitioner (reduce-scatter +
-all-gather over ICI), overlapped with the backward sweep by XLA's
-scheduler.  We express sharding with ``NamedSharding`` constraints and let
-the SPMD partitioner insert collectives — the idiomatic JAX formulation of
-what NCCL code would hand-write.
+their gradients are all-reduced by the partitioner.  The cards of one host
+all reach each other at the same rate (NVLink), so the mesh is a plain
+reshape of the device list: its shape follows the algorithm alone.
+Sharding is expressed with ``NamedSharding`` constraints and ``shard_map``;
+the SPMD partitioner inserts the collectives.
 
 Multi-host: the same code runs under ``jax.distributed.initialize`` with a
 global mesh; host-local entry points need no changes (jax.jit handles the
@@ -45,9 +44,9 @@ def initialize_multihost(
 ) -> None:
     """Multi-host bring-up: ``jax.distributed.initialize`` (SURVEY.md §5.8).
 
-    On Cloud TPU pod slices the arguments auto-detect; elsewhere pass the
-    coordinator address plus (num_processes, process_id) — e.g. the
-    2-process CPU smoke test (tests/test_multihost.py).  After this,
+    Pass the coordinator address plus (num_processes, process_id) — e.g.
+    the 2-process CPU smoke test (tests/test_multihost.py); nothing detects
+    a cluster on its own.  After this,
     ``jax.devices()`` spans the slice and every mesh built by
     :func:`make_mesh` is global — the render/train entry points need no
     changes.  Call once per process, before any other JAX usage.
@@ -167,7 +166,7 @@ def render_sharded_wavefront(
 
     Because wavefront RNG keys on the global (sample, pixel) pair, the
     result is bit-identical to the single-device render regardless of the
-    mesh shape (tested on the simulated 8-device mesh)."""
+    mesh shape (tested on the simulated 8-device CPU mesh)."""
     try:
         from jax import shard_map  # jax >= 0.6
     except ImportError:  # pragma: no cover
@@ -193,8 +192,13 @@ def render_sharded_wavefront(
     import inspect
 
     kw = {}
-    if "check_rep" in inspect.signature(shard_map).parameters:
+    sig = inspect.signature(shard_map).parameters
+    if "check_rep" in sig:
         kw["check_rep"] = False  # legacy jax.experimental API only
+    if "check_vma" in sig:
+        # pallas_call outputs carry no varying-axes annotation; every shard
+        # renders on its own (no collectives), so the check adds nothing.
+        kw["check_vma"] = False
 
     @partial(
         shard_map,
@@ -210,70 +214,6 @@ def render_sharded_wavefront(
 
     colors = jax.jit(shard_fn)(pixel_idx)
     return colors[:n_pixels].reshape(h, w, 3)
-
-
-def render_sharded_megakernel(
-    scene: SceneData,
-    camera: Camera,
-    cfg: RenderConfig,
-    mesh: Mesh,
-    *,
-    spp: int | None = None,
-    key: jax.Array | None = None,
-    lanes: int = 128,
-    interpret: bool = False,
-) -> jnp.ndarray:
-    """The PRODUCTION clustered/flat megakernel under the device mesh:
-    each device runs the persistent-pool Pallas kernel over its own
-    contiguous pixel tile via ``shard_map`` (same zero-collective layout
-    as render_sharded_wavefront).  ``interpret=True`` lets the CPU mesh
-    exercise the kernel family end-to-end (dryrun_multichip); on real
-    chips the compiled kernel runs per device unchanged.
-
-    Tile pools are independent of the mesh shape, so the result is
-    bit-identical to the single-device megakernel render."""
-    try:
-        from jax import shard_map  # jax >= 0.6
-    except ImportError:  # pragma: no cover
-        from jax.experimental.shard_map import shard_map
-
-    from rt_tpu.megakernel import render_megakernel
-
-    spp = spp if spp is not None else cfg.samples_per_pixel
-    key = key if key is not None else jax.random.key(cfg.seed)
-    w, h = camera.image_width, camera.image_height
-    n_pixels = w * h
-    n_dev = mesh.shape["tiles"] * mesh.shape["spp"]
-    shard_px = 256  # one megakernel tile per device
-    assert n_pixels == n_dev * shard_px, (
-        "dryrun geometry: pixels must split into one 256-pixel tile per"
-        f" device (got {n_pixels} px over {n_dev} devices)"
-    )
-
-    import inspect
-
-    kw = {}
-    sig = inspect.signature(shard_map).parameters
-    if "check_rep" in sig:
-        kw["check_rep"] = False  # legacy jax.experimental API only
-    if "check_vma" in sig:
-        # pallas_call outputs carry no vma annotation; the kernel is
-        # fully per-shard (no collectives), so the check adds nothing.
-        kw["check_vma"] = False
-
-    @partial(shard_map, mesh=mesh, in_specs=(), out_specs=P(("tiles", "spp")), **kw)
-    def shard_fn():
-        idx = jax.lax.axis_index("tiles") * mesh.shape["spp"] + jax.lax.axis_index(
-            "spp"
-        )
-        return render_megakernel(
-            scene, camera, cfg, spp, 0, key,
-            pixel_base=idx * shard_px, n_pixels=shard_px,
-            lanes=lanes, tile_pixels=shard_px, interpret=interpret,
-        )
-
-    colors = jax.jit(shard_fn)()
-    return colors.reshape(h, w, 3)
 
 
 @partial(jax.jit, static_argnames=("cfg", "spp", "width", "lr"))

@@ -3,8 +3,8 @@
 Reference analog (SURVEY.md §5.1, §5.5): a Cargo `profiling` build profile
 for external profilers (Cargo.toml:26-28), per-sweep and cumulative Mray/s
 prints (window.rs:315-324), and indicatif progress bars.  rt_tpu keeps the
-Mray/s definition as the canonical metric and adds what a TPU deployment
-actually needs: ``jax.profiler`` trace capture around render steps and
+Mray/s definition as the canonical metric and adds what an accelerator
+deployment actually needs: ``jax.profiler`` trace capture around render steps and
 JSONL metrics for machines to read.
 """
 
@@ -25,7 +25,7 @@ def mray_per_s(width: int, height: int, spp: int, seconds: float) -> float:
 @contextlib.contextmanager
 def device_trace(log_dir: str):
     """Capture an XLA device trace viewable in TensorBoard/Perfetto —
-    the TPU equivalent of attaching a native profiler to the reference's
+    the device equivalent of attaching a native profiler to the reference's
     `profiling` build."""
     import jax
 

@@ -65,17 +65,12 @@ class ProgressiveRenderer:
         metrics_path: str | None = None,
         reuse_sample_indices: bool = True,
         progress: bool = False,
-        engine: str = "wavefront",
         checkpoint_every: int = 1,
     ):
-        """``engine``: "wavefront" (default — the original jax.random
-        draw-stream family, bit-stable with earlier releases) or "mega"
-        — full-frame sweeps through the production megakernel (hash-RNG
-        family; statistically equivalent, different draws; falls back to
-        the wavefront when the scene isn't megakernel-eligible).
-        ``checkpoint_every``: sweeps between checkpoint writes (a 1080p
-        f32 accumulator is a ~25 MB npz per write — per-sweep writes
-        dominated sub-second sweeps; the final sweep always writes)."""
+        """Sweeps run through the persistent wavefront
+        (wavefront.render_wavefront).  ``checkpoint_every``: sweeps between
+        checkpoint writes (a 1080p f32 accumulator is a ~25 MB npz per
+        write; the final sweep always writes)."""
         self.scene = scene
         self.camera = camera
         self.cfg = cfg
@@ -83,12 +78,6 @@ class ProgressiveRenderer:
         self.checkpoint_path = checkpoint_path
         self.reuse_sample_indices = reuse_sample_indices
         self.checkpoint_every = max(int(checkpoint_every), 1)
-        if engine == "mega":
-            from rt_tpu.megakernel import eligible, eligible_clustered
-
-            if not (eligible(scene, cfg) or eligible_clustered(scene, cfg)):
-                engine = "wavefront"
-        self.engine = engine
         h, w = camera.image_height, camera.image_width
         self.state = ProgressiveState(np.zeros((h, w, 3), np.float32), 0, 0)
         self._timer = ThroughputTimer(w, h)
@@ -114,22 +103,15 @@ class ProgressiveRenderer:
         # (camera.rs:317-320); material randomness differs via the pass key.
         offset = 0 if self.reuse_sample_indices else self.state.total_spp
         key = jax.random.fold_in(jax.random.key(self.cfg.seed), i)
-        if self.engine == "mega":
-            from rt_tpu.megakernel import render_megakernel
-
-            colors = render_megakernel(
-                self.scene, self.camera, self.cfg, ns, offset, key
-            )
-        else:
-            colors = render_wavefront(
-                self.scene,
-                self.camera,
-                self._pixel_idx,
-                self.cfg,
-                ns,
-                jnp.int32(offset),
-                key,
-            )
+        colors = render_wavefront(
+            self.scene,
+            self.camera,
+            self._pixel_idx,
+            self.cfg,
+            ns,
+            jnp.int32(offset),
+            key,
+        )
         colors = np.asarray(jax.block_until_ready(colors)).reshape(h, w, 3)
         sweep_s = time.perf_counter() - sweep_start
         sweep_mray, cum_mray = self._timer.end_sweep(ns)

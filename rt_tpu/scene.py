@@ -3,7 +3,7 @@
 The reference keeps an AoS ``Vec<Shape>`` of enum-dispatched Sphere/Triangle
 structs, each holding an ``Arc<Material>`` pointer, with textures boxed
 inside materials (hittable.rs:24-29, 101-105; material.rs:10-16;
-texture.rs:12-18).  That pointer-chasing layout cannot execute on a TPU.
+texture.rs:12-18).  That pointer-chasing layout does not map onto batched device code.
 
 rt_tpu inverts it into flat, statically-shaped SoA arrays:
 
@@ -31,8 +31,8 @@ import hashlib
 
 import numpy as np
 import jax.numpy as jnp
-from flax import struct
 
+from rt_tpu.pytree import PyTreeNode, static_field
 from rt_tpu.sky import SkyParams
 
 # Material type tags (reference enum Material, material.rs:12-16).
@@ -50,12 +50,7 @@ TEX_SOLID = 0
 TEX_CHECKER = 1
 TEX_IMAGE = 2
 
-# Clusters per worklist-kernel page (scene splits larger cluster sets into
-# pages; tests shrink this to exercise multi-page merging cheaply).
-CLUSTER_PAGE = 512
-
-
-class BvhArrays(struct.PyTreeNode):
+class BvhArrays(PyTreeNode):
     """Flattened BVH in depth-first order with skip ("escape") indices for
     stackless traversal (built host-side; see rt_tpu/bvh/).
 
@@ -73,59 +68,7 @@ class BvhArrays(struct.PyTreeNode):
     prim_order: jnp.ndarray  # i32[NP] permutation of global prim ids
 
 
-class ClusterPage(struct.PyTreeNode):
-    """One VMEM-sized page of clustered primitive tables.  Scenes larger
-    than a page are split; the worklist kernel runs once per page and the
-    wavefront merges the per-page winners (table paging: each kernel call
-    streams ~<=4 MB of tables HBM->VMEM, trivial traffic per bounce).
-
-    Winner slot ids are globalized by the static bases so every page
-    indexes the one slot-ordered shade table."""
-
-    sph_cluster: jnp.ndarray  # f32[Ms_pad, 8]
-    sph_slots: jnp.ndarray  # f32[4, Ms_pad*128]
-    tri_cluster: jnp.ndarray  # f32[Mt_pad, 8]
-    tri_slots: jnp.ndarray  # f32[12, Mt_pad*128]
-    # Super AABBs (one per 64-cluster group of this page) for the
-    # hierarchical phase A of the worklist kernel.
-    sph_super: jnp.ndarray | None = None  # f32[Ms_pad/64, 8]
-    tri_super: jnp.ndarray | None = None  # f32[Mt_pad/64, 8]
-    sph_slot_base: int = struct.field(pytree_node=False, default=0)
-    tri_slot_base: int = struct.field(pytree_node=False, default=0)
-
-
-class ClusterData(struct.PyTreeNode):
-    """Clustered primitive tables for the Pallas wavefront kernel
-    (see rt_tpu/cluster.py): fixed-stride clusters of 128 prim slots,
-    paged for VMEM residency, plus the shade table re-ordered so kernel
-    slot ids index it directly.  The legacy two-level (super) tables are
-    kept for the predicated kernel variant."""
-
-    pages: tuple  # tuple[ClusterPage, ...]
-    sph_super: jnp.ndarray  # f32[Ss, 8]
-    sph_cluster: jnp.ndarray  # f32[Ms_pad, 8] (page 0 compat view)
-    sph_slots: jnp.ndarray  # f32[4, Ms_pad*128]
-    tri_super: jnp.ndarray  # f32[St, 8]
-    tri_cluster: jnp.ndarray  # f32[Mt_pad, 8]
-    tri_slots: jnp.ndarray  # f32[12, Mt_pad*128]
-    shade_table: jnp.ndarray  # f32[F, slots_pad] slot-ordered
-    n_sph_slots: int = struct.field(pytree_node=False, default=0)
-    # Inline-fetch support (megakernel clustered mode): deduplicated
-    # checker parameters [8, 128] (rows: inv_scale, even rgb, odd rgb,
-    # pad) indexed by the essentials rows' 6-bit checker id, and whether
-    # the scene fits the inline encoding (<= 64 distinct checkers).
-    checker_table: jnp.ndarray | None = None
-    inline_ok: bool = struct.field(pytree_node=False, default=True)
-    # Mean clusters entered by random surface-origin chords (host probe
-    # at build time) — the bounce-ray incoherence proxy that routes the
-    # clustered megakernel's expand_sweep="auto" decision: closed bodies
-    # (blob 4.2, armor 3.8, car 4.7) benefit from per-ray expansion
-    # visits; open/sparse layouts (heightfield 2.5, sphere covers 1.1)
-    # keep the row-granular sweep (measured 2026-08-20).
-    chord_clusters: float = struct.field(pytree_node=False, default=0.0)
-
-
-class SceneData(struct.PyTreeNode):
+class SceneData(PyTreeNode):
     """Immutable device-resident scene (reference analog: World,
     hittable.rs:24-29)."""
 
@@ -163,22 +106,18 @@ class SceneData(struct.PyTreeNode):
 
     bvh: BvhArrays | None = None
 
-    # Hot-path acceleration data (forward renderer only; see
-    # rt_tpu/fast_shade.py).  ``shade_table`` packs every per-primitive
-    # shading parameter into one dense f32[F, P] matrix so the wavefront
-    # fetches a hit's full parameter set with a single one-hot MXU matmul
-    # instead of ~20 XLA gathers (~1 ms each on TPU).  None when the scene
+    # Hot-path shading data (see rt_tpu/fast_shade.py): every
+    # per-primitive shading parameter packed into one dense f32[F, P]
+    # matrix, so the wavefront fetches a hit's whole parameter set in one
+    # operation instead of ~20 separate gathers.  None when the scene
     # uses a texture configuration the packed table can't express
     # (checker with non-solid children) — the generic path still works.
     shade_table: jnp.ndarray | None = None  # f32[F, P_pad]
-    sph_packed: jnp.ndarray | None = None  # f32[S_pad, 4] kernel layout
-    tri_packed: jnp.ndarray | None = None  # f32[T_pad, 12] kernel layout
-    clusters: ClusterData | None = None
 
     # Static metadata.
-    num_spheres: int = struct.field(pytree_node=False, default=0)
-    num_triangles: int = struct.field(pytree_node=False, default=0)
-    has_image_textures: bool = struct.field(pytree_node=False, default=False)
+    num_spheres: int = static_field(0)
+    num_triangles: int = static_field(0)
+    has_image_textures: bool = static_field(False)
 
     @property
     def num_prims(self) -> int:
@@ -200,60 +139,6 @@ class _Material:
         self.texture = texture
         self.fuzz = fuzz
         self.ior = ior
-
-
-def _chord_proxy(*sets, n_rays: int = 256, seed: int = 0) -> float:
-    """Mean clusters entered by random SURFACE-ORIGIN chords (origins at
-    random live-cluster centers, isotropic directions) — a host-side
-    proxy for bounce-ray incoherence, prim-weighted over the sets.
-
-    Closed bodies score high (every interior bounce ray crosses the
-    shell: blob 4.2, armor 3.8, car 4.7); open/sparse layouts score low
-    (heightfield 2.5, sphere covers 1.1).  The clustered megakernel's
-    expand_sweep="auto" switches the intersect architecture on it."""
-    rng = np.random.default_rng(seed)
-    tot = w = 0.0
-    for cl, n_prims in sets:
-        if not n_prims:
-            continue
-        cl = np.asarray(cl, np.float32)
-        live = cl[:, 0] <= cl[:, 3]
-        if not live.any():
-            continue
-        clv = cl[live]
-        if len(clv) > 4096:
-            # bound the (n_rays, M, 3) slab transients (~1 GB at 16k
-            # clusters otherwise); a 4k sample keeps the mean stable
-            clv = clv[rng.choice(len(clv), 4096, replace=False)]
-        ctr = (clv[:, 0:3] + clv[:, 3:6]) * 0.5
-        o = ctr[rng.integers(0, len(clv), n_rays)]
-        d = rng.standard_normal((n_rays, 3)).astype(np.float32)
-        d /= np.maximum(np.linalg.norm(d, axis=1, keepdims=True), 1e-9)
-        inv = 1.0 / np.where(np.abs(d) > 1e-20, d, 1e-20)
-        t0 = (clv[None, :, 0:3] - o[:, None, :]) * inv[:, None, :]
-        t1 = (clv[None, :, 3:6] - o[:, None, :]) * inv[:, None, :]
-        tn = np.maximum(np.minimum(t0, t1).max(2), 0.0)
-        tf = np.maximum(t0, t1).min(2)
-        ent = ((tn <= tf) & (tf >= 0)).sum(1)
-        tot += float(ent.mean()) * n_prims
-        w += n_prims
-    return tot / w if w else 0.0
-
-
-def _cluster_capacity_split(ns: int, nt: int) -> tuple[int, int]:
-    """Per-type cluster-count caps for the clustered megakernel's static
-    worklist budget (sphere_cap, triangle_cap), split by prim share.
-
-    Budgeted in SUPERS (64-cluster groups): build_clusters pads each
-    type's cluster count up to a SUPER_SLOTS multiple and an empty type
-    still emits one padded super, so a cluster-granular 256*64 split
-    could overflow to 257 supers and silently drop the clustered path
-    (round-4 advisor finding).  Invariants (tested): both caps are
-    positive multiples of 64 and the worst-case padded super totals sum
-    to exactly _WL_ROWS (256)."""
-    sup_total = 256
-    sup_s = min(max(round(sup_total * ns / max(ns + nt, 1)), 1), sup_total - 1)
-    return sup_s * 64, (sup_total - sup_s) * 64
 
 
 class SceneBuilder:
@@ -480,24 +365,8 @@ class SceneBuilder:
             tex_kind, tex_color, tex_inv_scale, tex_children, tex_rect,
             len(self._spheres), len(self._triangles),
         )
-        # Kernel-layout sphere table (see pallas_ops.sphere_nearest).
-        s_pad = -(-s // 128) * 128
-        sph_packed = np.zeros((s_pad, 4), np.float32)
-        sph_packed[:s, 0:3] = sph_center
-        sph_packed[:s, 3] = sph_radius
-
-        # Kernel-layout triangle table: a.xyz, e1.xyz, e2.xyz, valid, pad.
-        t_pad = -(-t // 64) * 64
-        tri_packed = np.zeros((t_pad, 12), np.float32)
-        tri_packed[:t, 0:3] = tri_a
-        tri_packed[:t, 3:6] = tri_b - tri_a
-        tri_packed[:t, 6:9] = tri_c - tri_a
-        tri_packed[: len(self._triangles), 9] = 1.0  # real (non-dummy) rows
-
         scene = SceneData(
             shade_table=jnp.asarray(shade_np) if shade_np is not None else None,
-            sph_packed=jnp.asarray(sph_packed),
-            tri_packed=jnp.asarray(tri_packed),
             has_image_textures=any(t.kind == TEX_IMAGE for t in self._textures),
             sph_center=jnp.asarray(sph_center),
             sph_radius=jnp.asarray(sph_radius),
@@ -525,169 +394,17 @@ class SceneBuilder:
             num_triangles=len(self._triangles),
         )
 
-        # Clustered kernel tables for mid/large scenes (the TPU-friendly
-        # acceleration structure; small scenes brute-force faster than the
-        # AABB overhead, huge ones exceed the VMEM residency budget and
-        # fall back to the generic BVH path).
-        n_real = len(self._spheres) + len(self._triangles)
-        if shade_np is not None and (
-            len(self._triangles) > 128 or n_real > 2048
-        ):
-            cl = self._build_cluster_data(
-                shade_np, sph_center, sph_radius, tri_a, tri_b, tri_c
-            )
-            if cl is not None:
-                scene = scene.replace(clusters=cl)
-
         n_prims = scene.num_prims
         if use_bvh is None:
-            # Brute force rides the MXU and beats pointer-ish traversal for
-            # small scenes; the BVH wins once the (rays x prims) product gets
-            # heavy — triangles sooner (their brute path materializes
-            # [N,T,3] cross products).
+            # Brute force beats the per-ray walk for small scenes; the BVH
+            # wins once the (rays x prims) product gets heavy — triangles
+            # sooner (their brute path materializes [N,T,3] cross products).
             use_bvh = (len(self._triangles) > 256) or (n_prims > 4096)
         if use_bvh and n_prims > 0:
             from rt_tpu.bvh import build_bvh  # local import: optional native lib
 
             scene = scene.replace(bvh=build_bvh(self._prim_bounds()))
         return scene
-
-    def _build_cluster_data(
-        self, shade_np, sph_center, sph_radius, tri_a, tri_b, tri_c
-    ) -> "ClusterData | None":
-        """Two-level cluster tables + slot-ordered shade table (host side).
-        Returns None when the tables exceed the kernel's VMEM budget."""
-        from rt_tpu.cluster import (
-            build_clusters,
-            pack_sphere_slots,
-            pack_triangle_slots,
-        )
-        from rt_tpu.fast_shade import F_ROWS
-
-        ns = len(self._spheres)
-        nt = len(self._triangles)
-        s_min = sph_center[:ns] - sph_radius[:ns, None]
-        s_max = sph_center[:ns] + sph_radius[:ns, None]
-        # Clustered-megakernel capacity: combined supers <= 256 (the
-        # worklist's _WL_ROWS bound).  Budget in SUPERS, not clusters:
-        # build_clusters pads each type's cluster count up to a
-        # SUPER_SLOTS multiple (and an empty type still yields one
-        # padded super), so a cluster-granular split of 256*64 could
-        # overflow to 257 supers and silently drop the clustered path.
-        # Split the super budget by prim share so the leaf-preserving
-        # packing (fill ~0.7) can't push a huge streamed scene out of
-        # eligibility — _pack_leaves escalates its merge cap to stay
-        # inside.
-        cap_s, cap_t = _cluster_capacity_split(ns, nt)
-        _, s_slots, s_cl, s_sup = build_clusters(s_min, s_max, cap_s)
-        t_min_ = np.minimum(np.minimum(tri_a[:nt], tri_b[:nt]), tri_c[:nt])
-        t_max_ = np.maximum(np.maximum(tri_a[:nt], tri_b[:nt]), tri_c[:nt])
-        _, t_slots, t_cl, t_sup = build_clusters(t_min_, t_max_, cap_t)
-
-        from rt_tpu.cluster import build_essentials
-        from rt_tpu.fast_shade import F_IS_SPHERE, F_TEX_KIND, F_UVA
-
-        ess, chk_table, inline_ok = build_essentials(shade_np)
-        sph_slot_tab = pack_sphere_slots(
-            s_slots, sph_center, sph_radius, ess[:, :ns]
-        )
-        has_img_tris = bool(
-            (
-                (shade_np[F_IS_SPHERE, ns:] < 0.5)
-                & (shade_np[F_TEX_KIND, ns:] > 1.5)
-            ).any()
-        )
-        tri_slot_tab = pack_triangle_slots(
-            t_slots, tri_a, tri_b, tri_c, ess[:, ns:],
-            uva=shade_np[F_UVA : F_UVA + 6, ns:] if has_img_tris else None,
-        )
-
-        # Slot-ordered shade table: kernel winner ids index it directly.
-        n_sph_slots = s_slots.shape[0]
-        total = n_sph_slots + t_slots.shape[0]
-        total_pad = -(-total // 128) * 128
-        shade_slots = np.zeros((F_ROWS, total_pad), np.float32)
-        live_s = s_slots >= 0
-        shade_slots[:, np.nonzero(live_s)[0]] = shade_np[:, s_slots[live_s]]
-        live_t = t_slots >= 0
-        shade_slots[:, n_sph_slots + np.nonzero(live_t)[0]] = shade_np[
-            :, len(self._spheres) + t_slots[live_t]
-        ]
-
-        # Page split: each kernel invocation takes <=CLUSTER_PAGE clusters
-        # of each type so its tables stay within the VMEM budget; huge
-        # scenes just run more pages per bounce.
-        PAGE = CLUSTER_PAGE
-        dummy_cl = np.zeros((64, 8), np.float32)
-        dummy_cl[:, 0:3] = np.inf
-        dummy_cl[:, 3:6] = -np.inf
-        dummy_sph = np.zeros((8, 64 * 128), np.float32)
-        dummy_tri = np.zeros((16, 64 * 128), np.float32)
-        dummy_sup = np.zeros((1, 8), np.float32)
-        dummy_sup[:, 0:3] = np.inf
-        dummy_sup[:, 3:6] = -np.inf
-
-        pages = []
-        ms = s_cl.shape[0]
-        mt = t_cl.shape[0]
-        s_pages = [(p, min(p + PAGE, ms)) for p in range(0, ms, PAGE)]
-        t_pages = [(p, min(p + PAGE, mt)) for p in range(0, mt, PAGE)]
-        single = len(s_pages) <= 1 and len(t_pages) <= 1
-        if single:
-            pages.append(
-                ClusterPage(
-                    sph_cluster=jnp.asarray(s_cl),
-                    sph_slots=jnp.asarray(sph_slot_tab),
-                    tri_cluster=jnp.asarray(t_cl),
-                    tri_slots=jnp.asarray(tri_slot_tab),
-                    sph_super=jnp.asarray(s_sup),
-                    tri_super=jnp.asarray(t_sup),
-                    sph_slot_base=0,
-                    tri_slot_base=0,
-                )
-            )
-        else:
-            for lo, hi in s_pages:
-                pages.append(
-                    ClusterPage(
-                        sph_cluster=jnp.asarray(s_cl[lo:hi]),
-                        sph_slots=jnp.asarray(sph_slot_tab[:, lo * 128 : hi * 128]),
-                        tri_cluster=jnp.asarray(dummy_cl),
-                        tri_slots=jnp.asarray(dummy_tri),
-                        sph_super=jnp.asarray(s_sup[lo // 64 : -(-hi // 64)]),
-                        tri_super=jnp.asarray(dummy_sup),
-                        sph_slot_base=lo * 128,
-                        tri_slot_base=0,
-                    )
-                )
-            for lo, hi in t_pages:
-                pages.append(
-                    ClusterPage(
-                        sph_cluster=jnp.asarray(dummy_cl),
-                        sph_slots=jnp.asarray(dummy_sph),
-                        tri_cluster=jnp.asarray(t_cl[lo:hi]),
-                        tri_slots=jnp.asarray(tri_slot_tab[:, lo * 128 : hi * 128]),
-                        sph_super=jnp.asarray(dummy_sup),
-                        tri_super=jnp.asarray(t_sup[lo // 64 : -(-hi // 64)]),
-                        sph_slot_base=0,
-                        tri_slot_base=lo * 128,
-                    )
-                )
-
-        return ClusterData(
-            pages=tuple(pages),
-            sph_super=jnp.asarray(s_sup),
-            sph_cluster=jnp.asarray(s_cl),
-            sph_slots=jnp.asarray(sph_slot_tab),
-            tri_super=jnp.asarray(t_sup),
-            tri_cluster=jnp.asarray(t_cl),
-            tri_slots=jnp.asarray(tri_slot_tab),
-            shade_table=jnp.asarray(shade_slots),
-            n_sph_slots=int(n_sph_slots),
-            checker_table=jnp.asarray(chk_table),
-            inline_ok=bool(inline_ok),
-            chord_clusters=_chord_proxy((s_cl, ns), (t_cl, nt)),
-        )
 
     def _prim_bounds(self) -> tuple[np.ndarray, np.ndarray]:
         """Per-primitive AABBs in global prim-id order (spheres then

@@ -426,6 +426,21 @@ def mesh_scene(
     return b.build()
 
 
+def mesh_cam(width: int, height: int, dist: float = 5.5, height_z: float = 2.2) -> Camera:
+    """Three-quarter view of a unit-scale mesh standing on the ground
+    (the camera of the mesh benchmark configs 3-5)."""
+    return make_camera(
+        (dist, -dist, height_z),
+        (0.0, 0.0, 1.0),
+        (0.0, 0.0, 1.0),
+        focus_distance=float((2 * dist * dist + (height_z - 1) ** 2) ** 0.5),
+        defocus_angle=0.0,
+        image_width=width,
+        image_height=height,
+        vertical_fov=32.0,
+    )
+
+
 def mesh_with_area_light(
     obj_path: str,
     light_radiance=(6.0, 6.0, 5.5),

@@ -29,12 +29,12 @@ from __future__ import annotations
 import jax
 import numpy as np
 import jax.numpy as jnp
-from flax import struct
 
 from rt_tpu import color as color_mod
+from rt_tpu.pytree import PyTreeNode, static_field
 
 
-class SkyParams(struct.PyTreeNode):
+class SkyParams(PyTreeNode):
     """Differentiable sky parameters (reference analog: SkyState +
     sun_direction, hittable.rs:27-28)."""
 
@@ -58,7 +58,7 @@ class SkyParams(struct.PyTreeNode):
     # quirk's visual effect is entangled with Hosek-Wilkie's circumsolar
     # color, which Perez does not share).  (turbidity 2.0, exposure 0.25)
     # was fit to the top sky rows of the reference's final_render.png.
-    cos_gamma_as_angle: bool = struct.field(pytree_node=False, default=False)
+    cos_gamma_as_angle: bool = static_field(False)
 
     @staticmethod
     def default() -> "SkyParams":
@@ -203,8 +203,9 @@ def zenith_values(turbidity: jnp.ndarray, theta_s: jnp.ndarray):
     y_lum = (4.0453 * t - 4.9710) * jnp.tan(chi) - 0.2155 * t + 2.4192
     tv = jnp.stack([t * t, t, jnp.ones_like(t)])
     sv = jnp.stack([theta_s**3, theta_s**2, theta_s, jnp.ones_like(theta_s)])
-    x_z = tv @ _ZENITH_X @ sv
-    y_z = tv @ _ZENITH_Y @ sv
+    highest = jax.lax.Precision.HIGHEST
+    x_z = jnp.matmul(jnp.matmul(tv, _ZENITH_X, precision=highest), sv, precision=highest)
+    y_z = jnp.matmul(jnp.matmul(tv, _ZENITH_Y, precision=highest), sv, precision=highest)
     return y_lum, x_z, y_z
 
 
@@ -389,7 +390,9 @@ def sky_radiance_rgb(params: SkyParams, direction: jnp.ndarray) -> jnp.ndarray:
     big_x = x_c / y_c * y_lum
     big_z = (1.0 - x_c - y_c) / y_c * y_lum
     xyz = jnp.stack([big_x, y_lum, big_z], axis=-1)
-    rgb = jnp.einsum("ij,...j->...i", _XYZ_TO_SRGB, xyz)
+    rgb = jnp.einsum(
+        "ij,...j->...i", _XYZ_TO_SRGB, xyz, precision=jax.lax.Precision.HIGHEST
+    )
     return jnp.maximum(rgb, 0.0)
 
 

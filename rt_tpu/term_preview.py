@@ -69,11 +69,9 @@ def ansi_frame(image_linear: np.ndarray, max_cols: int = 100) -> str:
 def kitty_frame(image_linear: np.ndarray) -> str:
     """A kitty graphics-protocol escape carrying the full-resolution frame
     as PNG (chunked per the 4096-byte payload limit)."""
-    from PIL import Image
+    from rt_tpu.io.png_io import encode_png
 
-    buf = io.BytesIO()
-    Image.fromarray(_to_u8(image_linear), "RGB").save(buf, format="PNG")
-    payload = base64.standard_b64encode(buf.getvalue())
+    payload = base64.standard_b64encode(encode_png(_to_u8(image_linear)))
     out = io.StringIO()
     first = True
     while payload:

@@ -3,7 +3,7 @@
 Reference analog: the winit + pixels preview window (window.rs:33-217) —
 a 30 FPS framebuffer fed by the render thread, with click-to-inspect.
 
-A TPU pod has no desktop; the rt_tpu equivalent is an HTTP viewer: the
+An accelerator host has no desktop; the rt_tpu equivalent is an HTTP viewer: the
 progressive engine pushes each sweep's image into this server, and any
 browser shows the latest frame (auto-refreshing) with click-to-probe wired
 to the same debug probe as the reference's mouse handler
@@ -14,7 +14,6 @@ display — fixing the reference's known ungamma'd-preview TODO
 
 from __future__ import annotations
 
-import io
 import json
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -111,14 +110,12 @@ class PreviewServer:
 
     def update(self, image_linear: np.ndarray, status: dict | None = None):
         """Push a new frame (linear f32[H,W,3]); encoded gamma-corrected."""
-        from PIL import Image
-
         from rt_tpu import color as color_mod
+        from rt_tpu.io.png_io import encode_png
 
         rgb = np.asarray(color_mod.to_u8_gamma(np.asarray(image_linear, np.float32)))
-        buf = io.BytesIO()
-        Image.fromarray(rgb, "RGB").save(buf, format="PNG")
+        png = encode_png(rgb)
         with self._lock:
-            self._png = buf.getvalue()
+            self._png = png
             if status is not None:
                 self._status = status

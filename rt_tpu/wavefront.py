@@ -4,8 +4,8 @@ The naive wavefront (integrator.py) advances one megabatch of rays through
 the bounce loop and pays full cost per iteration even when most lanes have
 retired — and dielectric lanes (attenuation (1,1,1) => RR p=1,
 material.rs:174-177) never retire early, so the loop runs to max_depth with
-~1-5% occupancy.  This module is the TPU-native fix, the analog of GPU
-"persistent threads" wavefront tracing:
+~1-5% occupancy.  This module is the fix, the classic "persistent
+threads" wavefront:
 
 - a fixed-size ray *pool* (static shape B) holds in-flight path segments;
 - each ``lax.while_loop`` iteration advances every active lane one bounce;
@@ -16,17 +16,17 @@ material.rs:174-177) never retire early, so the loop runs to max_depth with
   (radiance materializes exactly once per path — at the sky miss), and the
   pixel/sample mean is a dense reduction at the end.
 
-Two implementations share that skeleton:
+Two implementations share that skeleton, and ``render_wavefront`` routes
+on whether the scene has a BVH:
 
-- the **fast path** (``_render_fast``): ray state packed as f32[16, B]
-  component rows, sphere intersection in the fused Pallas kernel
-  (pallas_ops.py), shading via the one-hot-matmul parameter fetch and
-  scalarized math (fast_shade.py).  Requires scene.shade_table and brute-
-  force-sized triangle counts.
+- the **fast path** (``_render_fast``, BVH-less scenes): ray state packed
+  as f32[8, B] component rows, brute-force intersection over every
+  primitive with the winner's shading parameters fetched in the same step
+  (pallas_ops.nearest_shaded), then scalarized shading (fast_shade.py);
 - the **generic path** (``_render_generic``): [B,3] arrays and the
-  readable geometry/materials modules; handles every scene (BVH meshes,
-  exotic textures) and doubles as the correctness reference for the fast
-  path.
+  readable geometry/materials modules, with the stackless per-ray BVH walk
+  (bvh/traverse.py) for scenes that have a BVH; it handles every scene
+  and doubles as the correctness reference for the fast path.
 
 RNG: the stateless hash generator (rt_tpu/rng.py) keyed on
 (seed, work_id, depth, purpose) — per-sample deterministic and independent
@@ -43,13 +43,11 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 
-from rt_tpu import fast_shade, materials, rng, sampling, sky
+from rt_tpu import fast_shade, materials, pallas_ops, rng, sampling, sky
 from rt_tpu.camera import Camera
 from rt_tpu.config import RenderConfig
 from rt_tpu.geometry import nearest_hit
 from rt_tpu.scene import SceneData
-
-MAX_FAST_TRIANGLES = 128  # brute-force triangle budget for the fast path
 
 
 def render_wavefront(
@@ -63,21 +61,14 @@ def render_wavefront(
     pool_size: int = 1 << 16,
 ) -> jnp.ndarray:
     """Mean radiance per pixel f32[P,3] over ``spp`` samples."""
-    fast_ok = scene.shade_table is not None and (
-        scene.clusters is not None
-        or (scene.num_triangles <= MAX_FAST_TRIANGLES and scene.num_prims <= 4096)
-    )
+    fast_ok = scene.bvh is None and scene.shade_table is not None
     impl = _render_fast if fast_ok else _render_generic
     return impl(scene, camera, pixel_idx, cfg, spp, sample_offset, key, pool_size)
 
 
 def _rank_of_idle(idle: jnp.ndarray) -> jnp.ndarray:
-    """Exclusive prefix count of idle lanes: cumsum(idle) - 1.
-
-    A flat 1-D cumsum at pool size measures ~1 ms on v5e; the reshaped
-    two-stage form (lane-dim scans of [rows, 128] + a short row scan) is
-    ~20x cheaper and exact.
-    """
+    """Exclusive prefix count of idle lanes: cumsum(idle) - 1, computed
+    in two exact stages (scans along [rows, 128] plus a short row scan)."""
     b = idle.shape[0]
     if b % 128 != 0:
         return jnp.cumsum(idle.astype(jnp.int32)) - 1
@@ -105,7 +96,7 @@ def _camera_jitter(camera: Camera, cfg: RenderConfig, seed, pix, sample):
 
 
 # ---------------------------------------------------------------------------
-# Fast path: [16, B] row state + Pallas intersection + scalarized shading.
+# Fast path: [8, B] row state + fused intersection + scalarized shading.
 # ---------------------------------------------------------------------------
 
 
@@ -120,14 +111,11 @@ def _render_fast(
     key: jax.Array,
     pool_size: int = 1 << 16,
 ) -> jnp.ndarray:
-    from rt_tpu import pallas_ops
-
     p = pixel_idx.shape[0]
     total_work = p * spp
     b = min(pool_size, max(-(-total_work // 256) * 256, 256))
     width = camera.image_width
     seed = _seed_from_key(key)
-    use_pallas = pallas_ops.available()
 
     # Camera frame as scalar components.
     p00 = camera.pixel00_loc
@@ -171,140 +159,18 @@ def _render_fast(
         rays = jnp.stack([ox, oy, oz, sx - ox, sy - oy, sz - oz, zeros, zeros], 0)
         return rays, slot, gwork
 
-    # Cluster path: winner ids are slot ids into the slot-ordered table.
-    use_cluster = use_pallas and scene.clusters is not None
-    shade_table = (
-        scene.clusters.shade_table if use_cluster else scene.shade_table
-    )
-
-    if use_cluster:
-        # Scene bounds for ray-sorting keys (from live cluster AABBs).
-        cl_ = scene.clusters
-        live_s = cl_.sph_cluster[:, 0] <= cl_.sph_cluster[:, 3]
-        live_t = cl_.tri_cluster[:, 0] <= cl_.tri_cluster[:, 3]
-        mins = jnp.minimum(
-            jnp.min(jnp.where(live_s[:, None], cl_.sph_cluster[:, 0:3], jnp.inf), axis=0),
-            jnp.min(jnp.where(live_t[:, None], cl_.tri_cluster[:, 0:3], jnp.inf), axis=0),
-        )
-        maxs = jnp.maximum(
-            jnp.max(jnp.where(live_s[:, None], cl_.sph_cluster[:, 3:6], -jnp.inf), axis=0),
-            jnp.max(jnp.where(live_t[:, None], cl_.tri_cluster[:, 3:6], -jnp.inf), axis=0),
-        )
-        inv_ext = 1.0 / jnp.maximum(maxs - mins, 1e-6)
-
-    def sort_pool(rays, tp, work, gid, depth, active):
-        """Reorder pool lanes for tile coherence: key = (direction octant,
-        8^3 origin Morton-ish cell).  The worklist kernel skips cluster
-        chunks only when NO ray in a 256-lane tile enters them, so bounce
-        coherence directly multiplies its effectiveness.  Lane order does
-        not affect the image (RNG keys on (sample, pixel); claims assign
-        the same contiguous work range either way).
-
-        The round-1 form permuted six arrays separately (~5 ms/iter at
-        B=64k, perf-neutral overall, ROADMAP item 3); this one bit-packs
-        the whole state into ONE [16, B] f32 buffer so the permutation is
-        a single gather, and callers additionally amortize via
-        ``cfg.sort_every``."""
-        oct_ = (
-            (rays[3] > 0).astype(jnp.int32) * 4
-            + (rays[4] > 0).astype(jnp.int32) * 2
-            + (rays[5] > 0).astype(jnp.int32)
-        )
-        cell = jnp.int32(0)
-        for axis in range(3):
-            nc = jnp.clip((rays[axis] - mins[axis]) * inv_ext[axis], 0.0, 0.999)
-            cell = cell * 32 + (nc * 32.0).astype(jnp.int32)
-        key = jnp.where(active, cell * 8 + oct_, jnp.int32(1 << 20))
-        perm = jnp.argsort(key)
-        as_f32 = lambda v: jax.lax.bitcast_convert_type(v, jnp.float32)[None, :]
-        packed = jnp.concatenate(
-            [
-                rays[0:6],
-                tp,
-                as_f32(work),
-                as_f32(gid),
-                as_f32(depth),
-                as_f32(active.astype(jnp.int32)),
-                jnp.zeros((3, rays.shape[1]), jnp.float32),
-            ],
-            axis=0,
-        )[:, perm]
-        as_i32 = lambda r: jax.lax.bitcast_convert_type(r, jnp.int32)
-        zeros2 = jnp.zeros((2, rays.shape[1]), jnp.float32)
-        return (
-            jnp.concatenate([packed[0:6], zeros2], axis=0),
-            packed[6:9],
-            as_i32(packed[9]),
-            as_i32(packed[10]),
-            as_i32(packed[11]),
-            as_i32(packed[12]) > 0,
-        )
-
     def intersect(rays, n):
-        """Returns (t, prim, params|None); params are pre-fetched shade
-        columns when the fused kernel ran."""
-        if scene.num_spheres + scene.num_triangles == 0:
+        """(t, prim, params|None); params are the winners' shade columns
+        when the fused kernel fetched them."""
+        if scene.num_prims == 0:
             return (
                 jnp.full((n,), fast_shade.BIG, jnp.float32),
                 jnp.full((n,), -1, jnp.int32),
                 None,
             )
-        if use_cluster:
-            # Branchless worklist kernel over each VMEM-sized table page
-            # (~10 us per pl.when branch made the predicated variant
-            # slower than brute force); per-page winners merge by min-t.
-            cl = scene.clusters
-            t_best = jnp.full((n,), fast_shade.BIG, jnp.float32)
-            slot_best = jnp.full((n,), -1, jnp.int32)
-            for page in cl.pages:
-                t_p, s_p = pallas_ops.cluster_worklist_nearest(
-                    rays,
-                    page.sph_super,
-                    page.sph_cluster,
-                    page.sph_slots,
-                    page.tri_super,
-                    page.tri_cluster,
-                    page.tri_slots,
-                    cl.n_sph_slots,
-                    cfg.t_min,
-                    cfg.t_max,
-                    cfg.compat.triangle_backface_cull,
-                    sph_slot_base=page.sph_slot_base,
-                    tri_slot_base=page.tri_slot_base,
-                )
-                better = t_p < t_best
-                t_best = jnp.where(better, t_p, t_best)
-                slot_best = jnp.where(better, s_p, slot_best)
-            return t_best, slot_best, None
-        if use_pallas:
-            # Fused variant also emits the winner's shade-table columns
-            # (the XLA one-hot fetch is HBM-bound; in-kernel it is free).
-            t_k, id_k, params_k = pallas_ops.prim_nearest_shaded(
-                rays,
-                scene.sph_packed,
-                scene.tri_packed,
-                shade_table,
-                scene.num_spheres,
-                cfg.t_min,
-                cfg.t_max,
-                cfg.compat.triangle_backface_cull,
-            )
-            return t_k, id_k, params_k
-        # XLA fallback (CPU tests).
-        t_s, id_s = (
-            fast_shade.sphere_nearest_rows(scene, rays, cfg.t_min, cfg.t_max)
-            if scene.num_spheres > 0
-            else (jnp.full((n,), fast_shade.BIG), jnp.full((n,), -1, jnp.int32))
+        return pallas_ops.nearest_shaded(
+            scene, rays, cfg.t_min, cfg.t_max, cfg.compat
         )
-        if scene.num_triangles > 0:
-            t_t, id_t = fast_shade.triangle_nearest_rows(
-                scene, rays, cfg.t_min, cfg.t_max, cfg.compat
-            )
-            tri_better = t_t < t_s
-            t_best = jnp.where(tri_better, t_t, t_s)
-            prim = jnp.where(tri_better, id_t + scene.num_spheres, id_s)
-            return t_best, jnp.where(t_best < fast_shade.BIG, prim, -1), None
-        return t_s, id_s, None
 
     def bounce(s, claiming: bool):
         """One wavefront iteration; ``claiming`` toggles work regeneration
@@ -330,25 +196,9 @@ def _render_fast(
             gid = s["gid"]
             next_work = s["next_work"]
 
-        if use_cluster and cfg.sort_rays:
-            if cfg.sort_every > 1:
-                # Amortized cadence: a real branch (lax.cond) so skipped
-                # iterations pay nothing for the argsort + gather.
-                rays, tp, work, gid, depth, active = jax.lax.cond(
-                    s["it"] % cfg.sort_every == 0,
-                    sort_pool,
-                    lambda *a: a,
-                    rays, tp, work, gid, depth, active,
-                )
-            else:
-                rays, tp, work, gid, depth, active = sort_pool(
-                    rays, tp, work, gid, depth, active
-                )
-
         t_best, prim, params = intersect(rays, n)
         out = fast_shade.shade_bounce(
-            scene, rays, t_best, prim, seed, gid, depth, cfg,
-            table=shade_table, params=params,
+            scene, rays, t_best, prim, seed, gid, depth, cfg, params=params
         )
 
         miss = active & ~out["hit"]
@@ -395,7 +245,6 @@ def _render_fast(
             active=cont,
             n_active=jnp.sum(cont.astype(jnp.int32)),
             next_work=next_work,
-            it=s["it"] + 1,
         )
 
     # Zeros derived from the (possibly sharded) pixel array: under
@@ -420,7 +269,6 @@ def _render_fast(
         active=jnp.zeros((b,), bool) | (zi > 0),
         n_active=jnp.int32(0) + zi,
         next_work=jnp.int32(0) + zi,
-        it=jnp.int32(0) + zi,
     )
 
     tail = 4096
@@ -450,7 +298,6 @@ def _render_fast(
             active=state["active"][order],
             n_active=state["n_active"],
             next_work=state["next_work"],
-            it=state["it"],
         )
 
         def cond2(s):
@@ -551,9 +398,7 @@ def _render_generic(
         depth = jnp.where(claim, 0, s["depth"])
         active = s["active"] | claim
 
-        rec = nearest_hit(
-            scene, org, dirn, cfg.t_min, cfg.t_max, cfg.compat, impl="pallas"
-        )
+        rec = nearest_hit(scene, org, dirn, cfg.t_min, cfg.t_max, cfg.compat)
 
         unit_dir = dirn / jnp.maximum(
             jnp.linalg.norm(dirn, axis=-1, keepdims=True), 1e-20

@@ -1,5 +1,5 @@
 """Distributed-behavior tests on a simulated 8-device CPU mesh
-(SURVEY.md §4: the TPU analog of multi-node-without-a-cluster)."""
+(SURVEY.md §4: the analog of multi-node-without-a-cluster)."""
 
 import numpy as np
 import jax

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 
 from rt_tpu import color
+from rt_tpu.io.png_io import decode_png
 from tests.make_goldens import GOLDEN_DIR, golden_cases, render_case
 
 CASES = golden_cases()
@@ -26,9 +27,8 @@ def test_golden(name):
     path = os.path.join(GOLDEN_DIR, f"{name}.png")
     if not os.path.exists(path):
         pytest.skip(f"golden {name} not generated (run tests/make_goldens.py)")
-    from PIL import Image
-
-    want = np.asarray(Image.open(path), np.float32)
+    with open(path, "rb") as f:
+        want = decode_png(f.read()).astype(np.float32)
     scene, camera, cfg = CASES[name]
     img = render_case(scene, camera, cfg)
     got = np.asarray(color.to_u8_gamma(img), np.float32)

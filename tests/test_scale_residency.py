@@ -63,13 +63,11 @@ def test_100k_triangle_mesh_linear_residency(tmp_path):
     assert scene.bvh is not None
 
     per_tri = _scene_bytes(scene) / n_tris
-    # Measured composition (~690 B/tri): SoA geometry+uv+normal (~80 B),
-    # kernel-layout packed rows (48 B), BVH arrays (~60 B), clustered slot
-    # tables (~3x48 B with padding), and the 40-row shade tables (flat +
-    # slot-ordered, 160 B each).  Linear with a sub-kB constant — a 10M-tri
-    # Sponza fits in ~7 GB where the reference needs ~40 GB and dies
-    # (scenes.rs:443-446).  A drift past 1 kB/tri means some table went
-    # quadratic or AoS.
+    # Composition: SoA geometry+uv+normal (~80 B), BVH arrays (~60 B) and
+    # the 40-row shade table (160 B).  Linear with a sub-kB constant — a
+    # 10M-tri Sponza fits in a few GB where the reference needs ~40 GB and
+    # dies (scenes.rs:443-446).  A drift past 1 kB/tri means some table
+    # went quadratic or AoS.
     assert per_tri < 1000, f"{per_tri:.0f} B/triangle — scene residency blew up"
 
     camera = scenes.cam1(8, 6)

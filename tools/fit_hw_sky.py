@@ -15,11 +15,12 @@ Output: a python literal for sky.HW_REFERENCE_FIT.
 Run: python tools/fit_hw_sky.py [path-to-final_render.png]
 """
 
+import os
 import sys
 
 import numpy as np
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax  # noqa: E402
 

@@ -89,17 +89,14 @@ def make_obj_heightfield(path: str, nx: int = 224, ny: int = 224) -> int:
 
 
 def _checker_png_b64(size: int, c0, c1, seed: int = 0) -> str:
-    from PIL import Image
-    import io as _io
+    from rt_tpu.io.png_io import encode_png
 
     rng = np.random.default_rng(seed)
     yy, xx = np.mgrid[0:size, 0:size]
     mask = ((xx // (size // 8) + yy // (size // 8)) % 2).astype(np.float32)
     noise = rng.uniform(0.85, 1.0, (size, size, 1)).astype(np.float32)
     img = (np.where(mask[..., None] > 0, c1, c0) * noise * 255).astype(np.uint8)
-    buf = _io.BytesIO()
-    Image.fromarray(img).save(buf, format="PNG")
-    return base64.b64encode(buf.getvalue()).decode()
+    return base64.b64encode(encode_png(img)).decode()
 
 
 def make_glb_armor(path: str, res: int = 96, n_parts: int = 3, seed: int = 1) -> int:
@@ -224,7 +221,13 @@ def make_glb_armor(path: str, res: int = 96, n_parts: int = 3, seed: int = 1) ->
     return total_tris
 
 
-def ensure_fixtures(directory: str) -> dict:
+# Generated fixtures live in the checkout (git-ignored), next to the code.
+FIXTURE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".fixtures"
+)
+
+
+def ensure_fixtures(directory: str = FIXTURE_DIR) -> dict:
     """Generate (once) and return paths for the config 3-5 fixtures."""
     os.makedirs(directory, exist_ok=True)
     obj = os.path.join(directory, "skull_class.obj")
@@ -245,5 +248,5 @@ def ensure_fixtures(directory: str) -> dict:
 if __name__ == "__main__":
     import sys
 
-    out = sys.argv[1] if len(sys.argv) > 1 else "/tmp/rt_fixtures"
+    out = sys.argv[1] if len(sys.argv) > 1 else FIXTURE_DIR
     print(ensure_fixtures(out))

@@ -35,11 +35,12 @@ Output: rt_tpu/data/hw_dataset.npz with
 Run: python tools/gen_hw_dataset.py   (CPU, ~2 min)
 """
 
+import os
 import sys
 
 import numpy as np
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax  # noqa: E402
 
